@@ -1,0 +1,153 @@
+"""Small linear-algebra helpers shared by the MPS code (torch counterpart of
+kagomeperiodicbp_tpu/ops/linalg.py).
+
+``KPBP_LINALG=gram`` keeps its meaning from the JAX package: tall QRs go
+through CholeskyQR2, whose Cholesky factor and inverse come from kernel K2
+(``ops/kernels.chol_inv``), and exact truncated SVDs through eigh of the
+gram matrix. It is read at every call.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from .kernels import chol_inv
+
+PINV_RTOL = 1e-10
+
+
+def _real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.empty((), dtype=dtype).real.dtype
+
+
+def rtol_for(dtype) -> float:
+    """Regularisation threshold scaled to the working precision."""
+    if torch.finfo(_real_dtype(dtype)).bits <= 32:
+        return 1e-6
+    return PINV_RTOL
+
+
+def _gram_mode() -> bool:
+    return os.environ.get("KPBP_LINALG") == "gram"
+
+
+def _phase_fix(q: torch.Tensor, r: torch.Tensor):
+    """Make R's diagonal real-nonnegative (unique gauge).
+
+    A subnormal |R_jj| counts as zero, as it does under XLA, which flushes
+    subnormals: dividing by one overflows (complex64 reaches 1e-42 on
+    rank-deficient bonds of the pin's BP) and turns the column into NaN."""
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    ad = d.abs()
+    live = ad >= torch.finfo(ad.dtype).tiny
+    phase = torch.where(live, d / torch.where(live, ad, torch.ones_like(ad)), torch.ones_like(d))
+    q = q * phase[..., None, :]
+    r = r * phase.conj()[..., :, None]
+    return q, r
+
+
+def _cholqr_once(a: torch.Tensor):
+    """One shifted CholeskyQR pass for a tall [m, k] matrix (m ≥ k):
+    G = A†A + u·tr(G)·I, (L, W = L⁻¹) from kernel K2, Q = A·W†, R = L†.
+    The shift keeps the Cholesky alive for rank-deficient A (zero-padded
+    bonds); null directions come back with ~zero-norm Q columns."""
+    k = a.shape[-1]
+    g = a.mH @ a
+    u = torch.finfo(_real_dtype(a.dtype)).eps
+    shift = u * torch.clamp(torch.diagonal(g).real.sum(), min=1e-300)
+    g = g + shift * torch.eye(k, dtype=g.dtype, device=g.device)
+    l, w = chol_inv(g)
+    return a @ w.mH, l.mH
+
+
+def cholqr2(a: torch.Tensor):
+    """CholeskyQR2: two passes restore orthonormality to ~machine eps for
+    cond(A) ≲ u^(-1/2). Requires m ≥ k."""
+    q1, r1 = _cholqr_once(a)
+    q, r2 = _cholqr_once(q1)
+    return _phase_fix(q, r2 @ r1)
+
+
+def qr_stable(a: torch.Tensor):
+    """Thin QR with R's diagonal made real-nonnegative (unique gauge);
+    tall matrices go through CholeskyQR2 under KPBP_LINALG=gram."""
+    if _gram_mode() and a.ndim == 2 and a.shape[0] >= a.shape[1]:
+        return cholqr2(a)
+    q, r = torch.linalg.qr(a, mode="reduced")
+    return _phase_fix(q, r)
+
+
+def svd_trunc(a: torch.Tensor, k: int):
+    """SVD keeping the k largest singular values: (u [m,k], s [k], vh [k,n])."""
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    return u[..., :, :k], s[..., :k], vh[..., :k, :]
+
+
+# Exact SVD up to this size; above it the randomized projection.
+RSVD_MIN_DIM = 256
+RSVD_OVERSAMPLE = 10
+RSVD_POWER_ITERS = 2
+
+
+def rsvd_trunc(a: torch.Tensor, k: int, oversample: int = RSVD_OVERSAMPLE,
+               power_iters: int = RSVD_POWER_ITERS, omega: Optional[torch.Tensor] = None):
+    """Randomized truncated SVD (Halko-Martinsson-Tropp): Gaussian sketch +
+    power iterations, then an exact SVD of the small projected matrix.
+
+    `omega` [n, ell] is the sketch. By default it is drawn from a generator
+    on a's device seeded with the JAX package's fold value
+    (m·1000003 + n) mod (2³¹−1), so results repeat run to run; the numbers
+    are torch's, not jax.random's."""
+    m, n = a.shape
+    ell = min(k + oversample, m, n)
+    if omega is None:
+        gen = torch.Generator(device=a.device)
+        gen.manual_seed((m * 1000003 + n) % (2**31 - 1))
+        omega = torch.randn((n, ell), generator=gen, dtype=_real_dtype(a.dtype), device=a.device)
+    omega = omega.to(a.dtype)
+    y = a @ omega
+    q, _ = torch.linalg.qr(y, mode="reduced")
+    for _ in range(power_iters):
+        z, _ = torch.linalg.qr(a.mH @ q, mode="reduced")
+        q, _ = torch.linalg.qr(a @ z, mode="reduced")
+    b = q.mH @ a
+    ub, s, vh = torch.linalg.svd(b, full_matrices=False)
+    u = q @ ub
+    return u[:, :k], s[:k], vh[:k, :]
+
+
+def svd_trunc_gram(a: torch.Tensor, k: int):
+    """Truncated SVD via eigh of the gram matrix on the short side."""
+    m, n = a.shape
+
+    def inv_of(s):
+        live = s >= torch.finfo(s.dtype).tiny  # subnormals count as zero, as in _phase_fix
+        return torch.where(live, 1.0 / torch.where(live, s, torch.ones_like(s)),
+                           torch.zeros_like(s))
+
+    if m <= n:
+        w, u = torch.linalg.eigh(a @ a.mH)        # ascending
+        w = w.flip(0)[:k]
+        u_k = u.flip(1)[:, :k]
+        s = torch.sqrt(torch.clamp(w, min=0.0))
+        vh = inv_of(s).to(a.dtype)[:, None] * (u_k.mH @ a)
+        return u_k, s, vh
+    w, v = torch.linalg.eigh(a.mH @ a)
+    w = w.flip(0)[:k]
+    v_k = v.flip(1)[:, :k]
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    u_k = (a @ v_k) * inv_of(s).to(a.dtype)[None, :]
+    return u_k, s, v_k.mH
+
+
+def svd_trunc_auto(a: torch.Tensor, k: int):
+    """svd_trunc (or its gram variant under KPBP_LINALG=gram) up to
+    RSVD_MIN_DIM, rsvd_trunc above."""
+    m, n = a.shape
+    if min(m, n) > max(RSVD_MIN_DIM, 4 * k):
+        return rsvd_trunc(a, k)
+    if _gram_mode():
+        return svd_trunc_gram(a, k)
+    return svd_trunc(a, k)

@@ -1,0 +1,156 @@
+"""The port's two kernels (K1 fused_tensor, K2 chol_inv) against the JAX
+package's Pallas kernels in interpret mode, and CholeskyQR2 against the JAX
+CholeskyQR2. Here the port runs its plain PyTorch versions (CPU tensors);
+tests/test_torch_cuda.py holds each CUDA kernel against its plain version on
+the card.
+
+Tolerances: complex128 is held to round-off of a few ulps of the result
+(1e-12 for K1, 1e-11 for K2 and 1e-10 for CholeskyQR2, whose two passes
+square the conditioning); complex64/float32 to the bars of tests/test_pallas.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kagomeperiodicbp_tpu.networks.unit_cell import fused_tensor as jax_fused_tensor
+from kagomeperiodicbp_tpu.ops import linalg as JL
+from kagomeperiodicbp_tpu.ops.pallas_kernels import chol_inv_pallas, fused_tensor_pallas
+from kagomeperiodicbp_tpu_torch.ops import kernels as K
+from kagomeperiodicbp_tpu_torch.ops import linalg as TL
+
+DTYPES = {"c64": (np.complex64, torch.complex64), "c128": (np.complex128, torch.complex128),
+          "f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's tensors here are small: one torch thread runs them as fast
+    and leaves the cores to XLA's compiler, which idle torch worker threads
+    measurably slow down."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _ket(D, dt, seed=0):
+    rng = np.random.default_rng(seed + D)
+    shape = (2, D, D, D, D)
+    t = rng.standard_normal(shape)
+    if np.issubdtype(dt, np.complexfloating):
+        t = t + 1j * rng.standard_normal(shape)
+    return (t / np.linalg.norm(t)).astype(dt)
+
+
+def _gram(k, dt, seed=0):
+    rng = np.random.default_rng(seed + k)
+    b = rng.standard_normal((k, k))
+    if np.issubdtype(dt, np.complexfloating):
+        b = b + 1j * rng.standard_normal((k, k))
+    return (b @ b.conj().T + k * np.eye(k)).astype(dt)  # well-conditioned PSD
+
+
+def _tall(m, n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+
+
+# ------------------------------- K1 ---------------------------------------
+
+
+@pytest.mark.parametrize("dtype,atol", [("c64", 2e-6), ("c128", 1e-12), ("f32", 2e-6)])
+@pytest.mark.parametrize("D", [2, 3])
+def test_fused_tensor_ref_matches_pallas(D, dtype, atol):
+    np_dt, _ = DTYPES[dtype]
+    t = _ket(D, np_dt)
+    got = K.fused_tensor(torch.from_numpy(t)).numpy()
+    assert got.dtype == np_dt and got.shape == (D * D,) * 4
+    np.testing.assert_allclose(got, np.asarray(fused_tensor_pallas(jnp.asarray(t), interpret=True)),
+                               atol=atol)
+    np.testing.assert_allclose(got, np.asarray(jax_fused_tensor(jnp.asarray(t))), atol=atol)
+
+
+def test_fused_tensor_on_cpu_takes_plain_version():
+    K.reset_launch_counts()
+    K.fused_tensor(torch.from_numpy(_ket(2, np.complex128)))
+    assert K.launch_counts() == {"fused_tensor": 0, "chol_inv": 0}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fused_tensor_cuda(torch.zeros((2, 2, 2, 2, 2), dtype=torch.complex128))
+
+
+# ------------------------------- K2 ---------------------------------------
+
+
+@pytest.mark.parametrize("k", [6, 18, 37, 130])
+def test_chol_inv_ref_matches_pallas_c64(k):
+    g = _gram(k, np.complex64)
+    l, w = (x.numpy() for x in K.chol_inv(torch.from_numpy(g)))
+    lp, wp = (np.asarray(x) for x in chol_inv_pallas(jnp.asarray(g), interpret=True))
+    l_ref = np.linalg.cholesky(g.astype(np.complex128))
+    scale = float(np.abs(l_ref).max())
+    for got in (l, lp):
+        np.testing.assert_allclose(got, l_ref, atol=5e-4 * np.sqrt(k), rtol=2e-4 * scale)
+    np.testing.assert_allclose(l, lp, atol=5e-4 * np.sqrt(k), rtol=2e-4 * scale)
+    for got in (w, wp):
+        np.testing.assert_allclose(got @ l_ref, np.eye(k), atol=5e-4)
+
+
+@pytest.mark.parametrize("k", [6, 18, 37, 130])
+def test_chol_inv_ref_matches_pallas_c128(k):
+    g = _gram(k, np.complex128)
+    l, w = (x.numpy() for x in K.chol_inv(torch.from_numpy(g)))
+    lp, wp = (np.asarray(x) for x in chol_inv_pallas(jnp.asarray(g), interpret=True))
+    np.testing.assert_allclose(l, lp, atol=1e-11)
+    np.testing.assert_allclose(w, wp, atol=1e-11)
+    np.testing.assert_allclose(w @ l, np.eye(k), atol=1e-11)
+
+
+def test_chol_inv_on_cpu_takes_plain_version():
+    K.reset_launch_counts()
+    K.chol_inv(torch.from_numpy(_gram(6, np.complex128)))
+    assert K.launch_counts()["chol_inv"] == 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.chol_inv_cuda(torch.eye(4, dtype=torch.float64))
+
+
+# ---------------------------- CholeskyQR2 ---------------------------------
+
+
+def _rank_deficient():
+    a = _tall(30, 10, seed=1)
+    a[:, 4] = 0
+    a[:, 9] = 0
+    return a
+
+
+@pytest.mark.parametrize("a", [_tall(24, 8, 0), _tall(100, 17, 2), _rank_deficient()],
+                         ids=["24x8", "100x17", "rank_deficient"])
+def test_cholqr2_matches_jax(a):
+    qj, rj = (np.asarray(x) for x in JL.cholqr2(jnp.asarray(a)))
+    qt, rt = (x.numpy() for x in TL.cholqr2(torch.from_numpy(a)))
+    assert np.all(np.isfinite(qt)) and np.all(np.isfinite(rt))
+    np.testing.assert_allclose(qt, qj, atol=1e-10)
+    np.testing.assert_allclose(rt, rj, atol=1e-10)
+    np.testing.assert_allclose(qt @ rt, a, atol=1e-10)
+
+
+def test_gram_mode_routes_tall_qr_through_cholqr2(monkeypatch):
+    a = torch.from_numpy(_tall(40, 12, seed=3))
+    monkeypatch.setenv("KPBP_LINALG", "gram")
+    q1, r1 = TL.qr_stable(a)
+    monkeypatch.delenv("KPBP_LINALG")
+    q2, r2 = TL.qr_stable(a)
+    np.testing.assert_allclose(q1.numpy(), q2.numpy(), atol=1e-10)
+    np.testing.assert_allclose(r1.numpy(), r2.numpy(), atol=1e-10)
+
+
+def test_phase_fix_treats_subnormal_diagonal_as_zero():
+    """A subnormal R_jj (complex64 reaches 1e-42 on the pin's rank-deficient
+    bonds) keeps phase 1, as under XLA's flush to zero, instead of
+    overflowing the division into NaN."""
+    r = torch.tensor([[2j, 0.5], [0, 1e-42 + 1e-42j]], dtype=torch.complex64)
+    q, r2 = TL._phase_fix(torch.eye(2, dtype=torch.complex64), r)
+    assert torch.isfinite(q).all() and torch.isfinite(r2).all()
+    assert r2[0, 0] == 2 and r2[1, 1] == r[1, 1]
+
