@@ -8,15 +8,30 @@ Phases (each raises on failure; any failure exits nonzero with no result):
 
 1. device — a CUDA device is required; prints the card's name and power limit;
 2. build — compiles the hand-written kernels (csrc/*.cu, sm_90a);
-3. kernels — K1 fused_tensor and K2 chol_inv against their plain PyTorch
-   versions on the card, in complex64 and complex128, with median times;
+3. kernels — K1 fused_tensor and K2 chol_inv (both variants, resident and
+   blocked) against their plain PyTorch versions on the card, in complex64
+   and complex128, with median times, and K2's two variants timed side by
+   side around their switch, ops/kernels.CHOL_RESIDENT_MAX_K, in all four
+   dtypes;
 4. the slice in complex128 — production_measurement of tests/assets/pin_D3.pkl
    (BP at N=3, χ=36, then the six edge RDMs at χ=56), once with the default
-   linear algebra and once with KPBP_LINALG=gram, against pin_D3.json;
+   linear algebra and once with KPBP_LINALG=gram, against pin_D3.json; then
+   K2 at every size the gram run gave it, against its plain version and the
+   library call (torch.linalg.cholesky_ex + solve_triangular);
 5. the slice in complex64, against the complex128 run (bar 1e-3);
 6. one BP sweep at N=2, D=3, χ=18 in complex64, timed;
-7. a JSON line with every kernel's launches on the main path, error and
-   times; the card's name and power limit; then the result line.
+7. torch.profiler over one gram BP sweep at the pin's BP size (N=3, χ=36,
+   complex128): device busy share and device time by kernel;
+8. a JSON line with every kernel's launches on the main path, error, times
+   and bound; the card's name and power limit; then the result line.
+
+A kernel's device time per call comes from CUDA events around calls that
+wait behind a device-side sleep, so that the host wrapper's time drops
+out; its time per call, from CUDA events around calls as the host issues
+them. A bound is the least time the card could take for a kernel's work: the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s and its flops over 67 TFLOP/s (H100 SXM: FP32 outside the tensor
+cores, and FP64 on them).
 """
 import json
 import os
@@ -34,6 +49,8 @@ SKETCH_TOL = 1e-6     # ceiling when a measured cause (the sketch) explains the 
 C64_TOL = 1e-3        # complex64 energy bar of the c64 dry run
 K1_TOL = {"complex64": 1e-6, "complex128": 1e-14}   # absolute, unit-norm ket
 K2_TOL = {"complex64": 1e-5, "complex128": 1e-12}   # relative to max|L|, max|W|
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = 67e12
 
 
 def _smi() -> str:
@@ -64,9 +81,51 @@ def _ms(torch, fn, budget_ms=300.0, rounds=5) -> float:
     return statistics.median(times)
 
 
+def bound(flops, nbytes):
+    """(ms, what bounds it) for work of `flops` and `nbytes` on this card."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def chol_inv_work(k, dt, torch):
+    """K2's flops and bytes at size k: k³/6 multiply-adds for the factor and
+    as many for the inverse (8 flops each in complex, 2 in real); G read
+    once, L and W written once."""
+    size = torch.empty((), dtype=dt).element_size()
+    return (8 if dt.is_complex else 2) * k ** 3 / 3, 3 * k * k * size
+
+
+def device_events(torch, prof):
+    """(name, start µs, end µs) of every device activity a profile saw."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(torch, fn, calls=20, sleep_cycles=20_000_000):
+    """Device time per call of `fn`: CUDA events around `calls` calls queued
+    behind a device-side sleep (~10 ms), so the host has enqueued them all
+    before the first one runs and its wrapper time drops out."""
+    fn()
+    torch.cuda.synchronize()
+    before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    before.record()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if not host_ms < before.elapsed_time(start):
+        raise AssertionError(f"device_ms: the host took {host_ms:.2f} ms to enqueue, longer than "
+                             f"the device slept; the time would include the host's gaps")
+    return start.elapsed_time(end) / calls
+
+
 def kernel_checks(torch, K, dev):
     """Phase 3: each kernel against its plain version, printed; returns the
-    rows measured at the main path's shapes (K1 at D=3 in complex128)."""
+    K1 row measured at the main path's shape (D=3 in complex128)."""
     gen = torch.Generator().manual_seed(0)
     rows = {}
     for name in ("complex64", "complex128"):
@@ -82,15 +141,51 @@ def kernel_checks(torch, K, dev):
             if not err < K1_TOL[name]:
                 raise AssertionError(f"K1 disagrees with its plain version: {err} at D={D} {name}")
             if D == 3 and name == "complex128":
-                rows["fused_tensor"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain}
-        for k in (6, 18, 37, 130, 300, 504):
+                size = t.element_size()
+                b_ms, b_by = bound(8 * 2 * D ** 8, (2 * D ** 4 + D ** 8) * size)
+                dev_ms = device_ms(torch, lambda: K.fused_tensor_cuda(t))
+                print(f"K1 fused_tensor {name} D={D}: device {dev_ms:.4f} ms per call "
+                      f"against {ms:.4f} ms per call with the host wrapper")
+                rows["fused_tensor"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                                        "device_ms": dev_ms, "shape": f"d=2, D={D}, {name}"}
+        for k in (1, 6, 18, 37, 72, 81, 130, 300, 504):
             check_chol_inv(torch, K, dev, gen, dt, name, k)
+    # the resident/blocked switch (ops/kernels.CHOL_RESIDENT_MAX_K): both
+    # variants side by side on either side of it, in every dtype K2 takes,
+    # per call on CUDA events (host wrapper included) and on the device
+    for name in ("float32", "float64", "complex64", "complex128"):
+        dt = getattr(torch, name)
+        edge = K.CHOL_RESIDENT_MAX_K
+        for k in (16, 24, 32, 40, 48, 56, 72, 81):
+            g = _spd(torch, gen, dt, k).to(dev)
+            times = {}
+            for variant in ("resident", "blocked"):
+                fn = lambda: K.chol_inv_cuda(g, variant)  # noqa: E731
+                times[variant] = (_ms(torch, fn, budget_ms=100.0), device_ms(torch, fn))
+            print(f"K2 switch {name} k={k}: resident {times['resident'][0]:.4f} ms "
+                  f"(device {times['resident'][1]:.4f}), blocked {times['blocked'][0]:.4f} ms "
+                  f"(device {times['blocked'][1]:.4f}); the plan takes "
+                  f"{'resident' if k <= edge else 'blocked'} (switch at k={edge})")
     return rows
 
 
-def check_chol_inv(torch, K, dev, gen, dt, name, k):
+def _spd(torch, gen, dt, k):
     b = torch.randn((k, k), generator=gen, dtype=dt)
-    g = (b @ b.mH + k * torch.eye(k, dtype=dt)).to(dev)
+    return b @ b.mH + k * torch.eye(k, dtype=dt)
+
+
+def _library(torch, g):
+    """The one library call that computes K2's function: cuSOLVER's potrf
+    (cholesky_ex, no error sync) and a triangular solve for L⁻¹."""
+    l, _ = torch.linalg.cholesky_ex(g)
+    eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+    return l, torch.linalg.solve_triangular(l, eye, upper=False)
+
+
+def check_chol_inv(torch, K, dev, gen, dt, name, k):
+    g = _spd(torch, gen, dt, k).to(dev)
+    variant = K.chol_inv_plan(k, dt).variant
     l, w = K.chol_inv_cuda(g)
     l_ref, w_ref = K.chol_inv_ref(g)
     err = max(((l - l_ref).abs().max() / l_ref.abs().max()).item(),
@@ -98,11 +193,16 @@ def check_chol_inv(torch, K, dev, gen, dt, name, k):
     abs_err = max((l - l_ref).abs().max().item(), (w - w_ref).abs().max().item())
     ms = _ms(torch, lambda: K.chol_inv_cuda(g))
     plain = _ms(torch, lambda: K.chol_inv_ref(g))
-    print(f"K2 chol_inv {name} k={k}: rel_err={err:.3e} (tol {K2_TOL[name]:g}) "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    library = _ms(torch, lambda: _library(torch, g))
+    b_ms, b_by = bound(*chol_inv_work(k, dt, torch))
+    print(f"K2 chol_inv {name} k={k} ({variant}): rel_err={err:.3e} (tol {K2_TOL[name]:g}) "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {library:.4f} ms, "
+          f"bound {b_ms * 1e3:.2f} us ({b_by})")
     if not err < K2_TOL[name]:
         raise AssertionError(f"K2 disagrees with its plain version: {err} at k={k} {name}")
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain}
+    return {"variant": variant, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+            "shape": f"k={k}, {name}", "g": g}
 
 
 def energy_gap(a, b) -> float:
@@ -120,6 +220,55 @@ def report_pin(res, gold, label) -> float:
           f"{res['seconds']:.2f} s wall; BP {res['bp_iterations']} iterations, "
           f"{res['bp_attempts']} attempt(s), error {res['bp_error']:.3e}")
     return gap
+
+
+def profile_gram_sweep(torch, C, F, UnitCell, dev):
+    """One BP sweep at the pin's BP size (N=3, χ=36, complex128) under
+    KPBP_LINALG=gram, after one warm-up sweep: device busy share over the
+    sweep and the kernels that take most of its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cell = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex128).force_zero_rotation()
+    fused = C.fused_cells(cell)
+    msgs = F._msgs_to_sites(C.initial_messages(3, cell.D, 36, dtype=torch.complex128, device=dev))
+    sweep = F.bp_iteration(3, cell.D, 36, 36, None)
+    os.environ["KPBP_LINALG"] = "gram"
+    try:
+        msgs, err = sweep(fused, msgs)
+        float(err)
+        torch.cuda.synchronize()
+        # a profiler's first session in a process can miss device activity:
+        # open one, and drop it, before the session whose numbers are kept
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1024, device=dev).sum()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            msgs, err = sweep(fused, msgs)
+            float(err)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("KPBP_LINALG", None)
+    events = device_events(torch, prof)
+    busy, end = 0.0, float("-inf")
+    for _, a, b in sorted(events, key=lambda e: e[1]):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for name, a, b in events:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    device = sum(by_name.values())
+    if not device > 0:
+        raise AssertionError("torch.profiler saw no device time in the gram sweep")
+    top = ", ".join(f"{name[:60]} {100 * t / device:.1f}%"
+                    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    k2 = sum(t for name, t in by_name.items() if "chol_inv" in name)
+    print(f"profile gram sweep N=3 chi=36 c128: {wall:.3f} s wall under the profiler; device "
+          f"busy {100 * busy / 1e6 / wall:.1f}% ({len(events)} device events, "
+          f"{device / 1e6:.3f} s of device time, K2 {100 * k2 / device:.1f}% of it); "
+          f"top device time: {top}")
 
 
 def main() -> int:
@@ -183,8 +332,9 @@ def main() -> int:
     gap_gram = report_pin(res_gram, gold, "c128 KPBP_LINALG=gram")
     if counts_default["fused_tensor"] <= 0 or counts_gram["fused_tensor"] <= 0:
         raise AssertionError("K1 was not launched by a slice run")
-    if counts_gram["chol_inv"] <= 0:
-        raise AssertionError("K2 was not launched by the gram slice run")
+    for variant in ("chol_inv_resident", "chol_inv_blocked"):
+        if counts_gram[variant] <= 0:
+            raise AssertionError(f"K2 ({variant}) was not launched by the gram slice run")
 
     # the randomized SVD draws its sketch from torch, not jax.random: how far
     # does the sketch move the pin? The same run with another sketch says.
@@ -220,18 +370,25 @@ def main() -> int:
             continue
         raise AssertionError(f"{label}: max|diff| {g} vs pin_D3.json")
 
-    # K2 at every size the gram run gave it; the JSON row is the size that
-    # carries most of the kernel's time there (calls × ms)
+    # K2 at every size the gram run gave it; each variant's JSON row is the
+    # size that carries most of that variant's time there (calls × ms)
     gen = torch.Generator().manual_seed(1)
     by_k = {k: check_chol_inv(torch, K, dev, gen, torch.complex128, "complex128", k)
             for k in sorted(k_seen)}
-    k_main = max(by_k, key=lambda k: k_seen[k] * by_k[k]["ms"])
-    rows["chol_inv"] = by_k[k_main]
-    kernel_s = sum(k_seen[k] * r["ms"] for k, r in by_k.items()) / 1e3
-    plain_s = sum(k_seen[k] * r["plain_ms"] for k, r in by_k.items()) / 1e3
-    print(f"K2 on the gram run: k={k_main} carries most of its time; all sizes together "
-          f"{kernel_s:.2f} s of kernel time vs {plain_s:.2f} s for the plain version "
-          f"(calls × isolated median times)")
+    for variant in ("resident", "blocked"):
+        ks = [k for k in by_k if by_k[k]["variant"] == variant]
+        k_main = max(ks, key=lambda k: k_seen[k] * by_k[k]["ms"])
+        row = by_k[k_main]
+        row["device_ms"] = device_ms(torch, lambda: K.chol_inv_cuda(row["g"]))
+        print(f"K2 {variant} k={k_main}: device {row['device_ms']:.4f} ms per call "
+              f"({K.chol_inv_plan(k_main, torch.complex128).launches} launch(es)) against "
+              f"{row['ms']:.4f} ms per call with the host wrapper")
+        rows[f"chol_inv_{variant}"] = row
+    totals = {key: sum(k_seen[k] * r[key] for k, r in by_k.items()) / 1e3
+              for key in ("ms", "plain_ms", "library_ms")}
+    print(f"K2 on the gram run: all sizes together {totals['ms']:.2f} s of kernel time vs "
+          f"{totals['plain_ms']:.2f} s for the plain version and {totals['library_ms']:.2f} s "
+          f"for the library call (calls × isolated median times)")
 
     # -- 5. the slice in complex64 --
     K.reset_launch_counts()
@@ -262,14 +419,18 @@ def main() -> int:
           f"over {len(sweep_s) - 1} sweeps after one warm-up; first {sweep_s[0] * 1e3:.1f} ms; "
           f"distance {float(err):.3e}")
 
-    # -- 7. results --
+    # -- 7. where the device time of a gram sweep goes --
+    profile_gram_sweep(torch, C, F, UnitCell, dev)
+
+    # -- 8. results --
     launches = {n: counts_default[n] + counts_gram[n] for n in counts_default}
+    k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     src = {"fused_tensor": ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu",
                             "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82"),
-           "chol_inv": ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu",
-                        "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")}
+           "chol_inv_resident": k2, "chol_inv_blocked": k2}
     kernels = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
-                "launches": launches[n], **rows[n]} for n in ("fused_tensor", "chol_inv")]
+                "launches": launches[n], **{k: v for k, v in rows[n].items() if k != "g"}}
+               for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked")]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,21 @@ __device__ __forceinline__ float kfma(float a, float b, float c) { return fmaf(a
 __device__ __forceinline__ double kfma(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float krsqrt(float a) { return rsqrtf(a); }
 __device__ __forceinline__ double krsqrt(double a) { return rsqrt(a); }
+// the value of `v` in lane `src` of the warp (all lanes take part)
+__device__ __forceinline__ float kshfl(float v, int src) { return __shfl_sync(0xffffffffu, v, src); }
+__device__ __forceinline__ double kshfl(double v, int src) { return __shfl_sync(0xffffffffu, v, src); }
+
+// The most dynamic shared memory one block can ask for on Hopper (227 KB);
+// above the 48 KB default a kernel must opt in (kpbp_allow_smem).
+constexpr int KPBP_SMEM_MAX = 232448;
+
+// Lets `kernel` take up to KPBP_SMEM_MAX of dynamic shared memory. Called
+// before every launch that needs more than 48 KB: it is a host-side
+// attribute write, and calling it each time keeps it right on every device.
+template <typename K>
+static cudaError_t kpbp_allow_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KPBP_SMEM_MAX);
+}
 
 template <typename R> struct RealScalar {
   using real = R;
@@ -21,6 +36,7 @@ template <typename R> struct RealScalar {
   static __device__ __forceinline__ R from_real(R a) { return a; }
   static __device__ __forceinline__ R re(R a) { return a; }
   static __device__ __forceinline__ R scale(R a, R s) { return a * s; }
+  static __device__ __forceinline__ R shfl(R a, int src) { return kshfl(a, src); }
   // acc + x·y
   static __device__ __forceinline__ R mul_add(R acc, R x, R y) { return kfma(x, y, acc); }
   // acc − x·y
@@ -38,6 +54,7 @@ template <typename C, typename R> struct ComplexScalar {
   static __device__ __forceinline__ C from_real(R a) { return make(a, R(0)); }
   static __device__ __forceinline__ R re(C a) { return a.x; }
   static __device__ __forceinline__ C scale(C a, R s) { return make(a.x * s, a.y * s); }
+  static __device__ __forceinline__ C shfl(C a, int src) { return make(kshfl(a.x, src), kshfl(a.y, src)); }
   static __device__ __forceinline__ C mul_add(C acc, C x, C y) {
     return make(kfma(x.x, y.x, kfma(-x.y, y.y, acc.x)), kfma(x.x, y.y, kfma(x.y, y.x, acc.y)));
   }

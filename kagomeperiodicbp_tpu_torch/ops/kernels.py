@@ -4,7 +4,10 @@ and the build that turns ``csrc/*.cu`` into a shared library.
 * K1 ``fused_tensor`` — the double-layer tensor of one site
   (``csrc/fused_tensor.cu``; replaces ``fused_tensor_pallas``).
 * K2 ``chol_inv`` — Cholesky factor L of a Hermitian PSD G and W = L⁻¹
-  (``csrc/chol_inv.cu``; replaces ``chol_inv_pallas``).
+  (``csrc/chol_inv.cu``; replaces ``chol_inv_pallas``), in two variants
+  that ``chol_inv_plan`` picks from k: ``resident`` (the matrix in one
+  block's shared memory) and ``blocked`` (one launch per 32-wide tile
+  column, each spread over many SMs).
 
 Dispatch rule, the same for both: a tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises. Nothing falls back.
@@ -12,8 +15,9 @@ version; a CUDA tensor launches the kernel or raises. Nothing falls back.
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``kagomeperiodicbp_tpu_torch/_build/``, under a name keyed by a hash of the
 sources, and bound with ``ctypes`` (a plain C interface: no PyTorch headers,
-so the build takes seconds). Each ``*_cuda`` wrapper counts its launches in
-its ``launches`` attribute.
+so the build takes seconds). ``fused_tensor_cuda`` counts its launches in
+its ``launches`` attribute, ``chol_inv_cuda`` in that of the variant it ran
+(``CHOL_INV_VARIANTS``); ``launch_counts`` reads them by kernel name.
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
-from typing import Tuple
+from types import SimpleNamespace
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -33,7 +39,7 @@ BUILD_DIR = _PKG / "_build"
 _SOURCES = ("fused_tensor.cu", "chol_inv.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 2, torch.complex128: 3}
 
@@ -67,20 +73,34 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), *(str(CSRC / s) for s in _SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc = _nvcc()
+        objs = [tmp.with_suffix(f".{src}.o") for src in _SOURCES]
+        # one nvcc per source, all at once; then one link
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                                   "-c", "-o", str(obj), str(CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(_SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{log}")
+            if verbose:
+                print(log)
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        for obj in objs:
+            obj.unlink()
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.kpbp_fused_tensor.argtypes = [p, p, i, i, i, p]
     lib.kpbp_fused_tensor.restype = i
-    lib.kpbp_chol_inv.argtypes = [p, p, p, p, i, i, i, p]
+    lib.kpbp_chol_inv.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.kpbp_chol_inv.restype = i
+    lib.kpbp_chol_inv_smem.argtypes = [i, i, i]
+    lib.kpbp_chol_inv_smem.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -148,27 +168,76 @@ def chol_inv_ref(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return l, w
 
 
-def chol_inv_cuda(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 on the card: g contiguous [k, k] or [batch, k, k], one thread block
-    per matrix. Reads the lower triangle of each G."""
+# Shared memory one block may take on Hopper (227 KB), and the blocked
+# variant's tile width (csrc/chol_inv.cu NB).
+SMEM_MAX = 232_448
+CHOL_NB = 32
+# The largest k that takes the resident variant, in every dtype: where the
+# two variants' times cross on the card (chip_smoke.py phase 3 times both
+# side by side; PERF.md). The blocked variant factors its diagonal tile in
+# registers and wins from k≈32, though the resident one fits one block's
+# shared memory up to k·(k|1) elements (120 in complex128, 169 in
+# complex64 and float64, 241 in float32).
+CHOL_RESIDENT_MAX_K = 24
+
+
+class CholInvPlan(NamedTuple):
+    variant: str      # "resident" or "blocked"
+    smem_bytes: int   # dynamic shared memory of one block
+    launches: int     # CUDA launches one call enqueues
+    scratch: int      # scratch elements per matrix
+
+
+@lru_cache(maxsize=None)
+def chol_inv_plan(k: int, dtype: torch.dtype, variant: str = "") -> CholInvPlan:
+    """How K2 runs a [k, k] gram of `dtype` on the card: ``resident`` up to
+    ``CHOL_RESIDENT_MAX_K``, ``blocked`` above. ``variant`` forces one
+    (chip_smoke.py times both around the switch); a resident matrix that
+    does not fit one block raises."""
+    size = torch.empty((), dtype=dtype).element_size()
+    variant = variant or ("resident" if k <= CHOL_RESIDENT_MAX_K else "blocked")
+    if variant == "resident":
+        smem = k * (k | 1) * size
+        if smem > SMEM_MAX:
+            raise ValueError(f"chol_inv: k={k} in {dtype} needs {smem} B of shared memory "
+                             f"resident, above the {SMEM_MAX} B a block can take")
+        return CholInvPlan("resident", smem, 1, 0)
+    if variant != "blocked":
+        raise ValueError(f"chol_inv: unknown variant {variant!r}")
+    real = size // 2 if dtype.is_complex else size
+    smem = (3 * CHOL_NB * (CHOL_NB + 1) + 2 * CHOL_NB) * size + 2 * CHOL_NB * real
+    return CholInvPlan("blocked", smem, -(-k // CHOL_NB), 2 * k * k)
+
+
+_VARIANT_CODE = {"resident": 0, "blocked": 1}
+
+
+def chol_inv_cuda(g: torch.Tensor, variant: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on the card: g contiguous [k, k] or [batch, k, k]; reads the lower
+    triangle of each G. One C call enqueues the plan's launches on the
+    current stream; the variant's wrapper counts the call."""
     code = _check_cuda(g, "chol_inv_cuda")
-    if g.ndim not in (2, 3) or g.shape[-1] != g.shape[-2]:
+    if g.ndim not in (2, 3) or g.shape[-1] != g.shape[-2] or g.shape[-1] < 1:
         raise ValueError(f"chol_inv_cuda: expected [k,k] or [b,k,k], got {tuple(g.shape)}")
     k = g.shape[-1]
     batch = g.shape[0] if g.ndim == 3 else 1
-    if k * g.element_size() > 48 * 1024:
-        raise ValueError(f"chol_inv_cuda: k={k} column exceeds the 48 KB shared-memory default")
-    scratch = torch.empty_like(g)
+    plan = chol_inv_plan(k, g.dtype, variant)
+    if plan.variant == "blocked" and batch > 65535:
+        raise ValueError(f"chol_inv_cuda: the blocked variant takes at most 65535 matrices, got {batch}")
+    scratch = torch.empty(batch * plan.scratch, dtype=g.dtype, device=g.device) if plan.scratch else None
     l = torch.empty_like(g)
     w = torch.empty_like(g)
-    rc = build().kpbp_chol_inv(g.data_ptr(), scratch.data_ptr(), l.data_ptr(),
-                               w.data_ptr(), k, batch, code, _stream())
-    chol_inv_cuda.launches += 1
-    _raise_on(rc, "chol_inv_cuda")
+    rc = build().kpbp_chol_inv(g.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+                               l.data_ptr(), w.data_ptr(), k, batch, code,
+                               _VARIANT_CODE[plan.variant], _stream())
+    CHOL_INV_VARIANTS[plan.variant].launches += 1
+    _raise_on(rc, f"chol_inv_cuda ({plan.variant})")
     return l, w
 
 
-chol_inv_cuda.launches = 0
+# the launch count of each K2 variant (both go through chol_inv_cuda)
+CHOL_INV_VARIANTS = {"resident": SimpleNamespace(launches=0),
+                     "blocked": SimpleNamespace(launches=0)}
 
 
 def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -179,7 +248,9 @@ def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # ------------------------------ counters ----------------------------------
 
-KERNELS = {"fused_tensor": fused_tensor_cuda, "chol_inv": chol_inv_cuda}
+KERNELS = {"fused_tensor": fused_tensor_cuda,
+           "chol_inv_resident": CHOL_INV_VARIANTS["resident"],
+           "chol_inv_blocked": CHOL_INV_VARIANTS["blocked"]}
 
 
 def reset_launch_counts() -> None:

@@ -34,6 +34,7 @@ from kagomeperiodicbp_tpu_torch.convert import (
 )
 from kagomeperiodicbp_tpu_torch.enums import UpdateEdge
 from kagomeperiodicbp_tpu_torch.lattices import BlockSide, KagomeBlock
+from kagomeperiodicbp_tpu_torch import measure
 from kagomeperiodicbp_tpu_torch.measure import production_measurement
 from kagomeperiodicbp_tpu_torch.ops import exact, ite_kernels as K
 from kagomeperiodicbp_tpu_torch.ops import mps as mpslib
@@ -103,11 +104,30 @@ def test_production_measurement_matches_jax(jax_run, tmp_path):
     path = os.path.join(tmp_path, "cell.pkl")
     with open(path, "wb") as fh:
         pickle.dump(data, fh)
-    got = production_measurement(path, N=N - 1)
+    got = production_measurement(path, N=N - 1, device="cpu")
     assert (got["N"], got["chi"], got["chi_bp"]) == (N, CHI_MEAS, CHI_MSG)
     for k, v in jmeas.energies.items():
         assert abs(got["edge_energies"][k] - v) < 1e-9, k
     assert abs(got["mean_energy"] - jmeas.mean_energy) < 1e-9
+
+
+def test_production_measurement_defaults_to_the_card(monkeypatch, tmp_path):
+    """With no device named, the entry point asks for the card; on a host
+    without CUDA it raises before any work, instead of running on the CPU."""
+    path = os.path.join(tmp_path, "cell.pkl")
+    with open(path, "wb") as fh:
+        pickle.dump(numpy_cell(seed=3), fh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def ran(*args, **kwargs):
+        raise AssertionError("the measurement ran without a card")
+
+    monkeypatch.setattr(measure, "robust_belief_propagation", ran)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        production_measurement(path)
+    monkeypatch.setattr("sys.argv", ["measure", path])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        measure.main()
 
 
 def test_damped_sweep_keeps_a_fraction_of_the_old_message():

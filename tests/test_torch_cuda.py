@@ -64,35 +64,88 @@ def test_fused_tensor_cuda_takes_strided_input(cuda):
         K.fused_tensor_cuda(t)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("k", [6, 18, 37, 130, 300, 504])
-def test_chol_inv_cuda_matches_ref(cuda, k, dtype):
-    g = _gram(k, DTYPES[dtype]).to(cuda)
-    before = K.chol_inv_cuda.launches
-    l, w = K.chol_inv(g)
+def _size(name, dtype):
+    """k for a named case: panel edges of the blocked variant (nb), the
+    resident/blocked switch, the largest resident matrix that fits one
+    block (fit), or a plain number."""
+    size = torch.empty((), dtype=dtype).element_size()
+    fit = max(k for k in range(1, 300) if k * (k | 1) * size <= K.SMEM_MAX)
+    return int(eval(name, {"__builtins__": {}},
+                    {"nb": K.CHOL_NB, "switch": K.CHOL_RESIDENT_MAX_K, "fit": fit}))
+
+
+def _check_chol_inv(g, dtype, variant=""):
+    """K2 on g against the plain version, and the launch counted on the
+    variant the plan (or `variant`) names and on no other."""
+    want = K.chol_inv_plan(g.shape[-1], g.dtype, variant).variant
+    before = K.launch_counts()
+    l, w = K.chol_inv_cuda(g, variant) if variant else K.chol_inv(g)
     torch.cuda.synchronize()
-    assert K.chol_inv_cuda.launches == before + 1
+    after = K.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "fused_tensor": 0, "chol_inv_resident": int(want == "resident"),
+        "chol_inv_blocked": int(want == "blocked")}
     l_ref, w_ref = K.chol_inv_ref(g)
     assert ((l - l_ref).abs().max() / l_ref.abs().max()).item() < K2_RTOL[dtype]
     assert ((w - w_ref).abs().max() / w_ref.abs().max()).item() < K2_RTOL[dtype]
+    # lower triangular, zeros above, exactly
+    assert not torch.triu(l, 1).any() and not torch.triu(w, 1).any()
+
+
+_K2_SIZES = ["1", "2", "nb-1", "nb", "nb+1", "2*nb+3", "switch-1", "switch", "switch+1",
+             "130", "300", "324", "504"]
+# the plan's own choice at every size, the blocked variant forced where the
+# plan keeps the matrix resident, and the resident one forced up to its fit
+_K2_CASES = ([(n, "") for n in _K2_SIZES] + [(n, "blocked") for n in ["1", "2", "switch"]]
+             + [(n, "resident") for n in ["nb+1", "81", "fit"]])
 
 
 @pytest.mark.cuda
-def test_chol_inv_cuda_batched(cuda):
-    g = _gram(40, torch.complex128, batch=(3,)).to(cuda)
-    l, w = K.chol_inv_cuda(g)
-    l_ref, w_ref = K.chol_inv_ref(g)
-    assert (l - l_ref).abs().max().item() < 1e-12 * l_ref.abs().max().item()
-    assert (w - w_ref).abs().max().item() < 1e-12 * w_ref.abs().max().item()
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k,variant", _K2_CASES, ids=[f"{n}-{v or 'plan'}" for n, v in _K2_CASES])
+def test_chol_inv_cuda_matches_ref(cuda, k, variant, dtype):
+    g = _gram(_size(k, DTYPES[dtype]), DTYPES[dtype]).to(cuda)
+    _check_chol_inv(g, dtype, variant)
 
 
 @pytest.mark.cuda
-def test_cholqr2_rank_deficient_on_card(cuda):
-    a = _randn((30, 10), torch.complex128, seed=3)
+@pytest.mark.parametrize("k,variant", [(18, ""), (40, ""), (130, ""), (40, "resident")])
+def test_chol_inv_cuda_batched(cuda, k, variant):
+    _check_chol_inv(_gram(k, torch.complex128, batch=(3,)).to(cuda), "c128", variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k", [1, 33, 120, 169, 241, 504])
+def test_chol_inv_plan_smem_matches_kernel(cuda, k, dtype):
+    """The plan's shared memory is what the C side launches with."""
+    dt = DTYPES[dtype]
+    lib = K.build()
+    for variant, code in (("resident", 0), ("blocked", 1)):
+        try:
+            plan = K.chol_inv_plan(k, dt, variant)
+        except ValueError:
+            continue
+        assert lib.kpbp_chol_inv_smem(k, K._DTYPE_CODE[dt], code) == plan.smem_bytes
+
+
+def _rank_deficient(m, n, seed):
+    a = _randn((m, n), torch.complex128, seed=seed)
     a[:, 4] = 0
-    a[:, 9] = 0
+    a[:, n - 1] = 0
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(30, 10), (400, 324)])
+def test_cholqr2_rank_deficient_on_card(cuda, m, n):
+    """CholeskyQR2 of an A with zero columns: the shift and the pivot clamp
+    keep Q and R finite, on the resident (k=10) and blocked (k=324) paths."""
+    a = _rank_deficient(m, n, seed=3)
+    variant = K.chol_inv_plan(n, torch.complex128).variant
+    before = K.launch_counts()[f"chol_inv_{variant}"]
     q, r = L.cholqr2(a.to(cuda))
+    assert K.launch_counts()[f"chol_inv_{variant}"] == before + 2
     qc, rc = L.cholqr2(a)
     assert torch.isfinite(q).all() and torch.isfinite(r).all()
     np.testing.assert_allclose(q.cpu().numpy(), qc.numpy(), atol=1e-10)

@@ -74,7 +74,7 @@ def test_fused_tensor_ref_matches_pallas(D, dtype, atol):
 def test_fused_tensor_on_cpu_takes_plain_version():
     K.reset_launch_counts()
     K.fused_tensor(torch.from_numpy(_ket(2, np.complex128)))
-    assert K.launch_counts() == {"fused_tensor": 0, "chol_inv": 0}
+    assert K.launch_counts() == {"fused_tensor": 0, "chol_inv_resident": 0, "chol_inv_blocked": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.fused_tensor_cuda(torch.zeros((2, 2, 2, 2, 2), dtype=torch.complex128))
 
@@ -109,9 +109,38 @@ def test_chol_inv_ref_matches_pallas_c128(k):
 def test_chol_inv_on_cpu_takes_plain_version():
     K.reset_launch_counts()
     K.chol_inv(torch.from_numpy(_gram(6, np.complex128)))
-    assert K.launch_counts()["chol_inv"] == 0
+    assert K.launch_counts()["chol_inv_resident"] == K.launch_counts()["chol_inv_blocked"] == 0
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.chol_inv_cuda(torch.eye(4, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", ["c64", "c128", "f32", "f64"])
+def test_chol_inv_plan_sends_only_what_fits_to_the_resident_variant(dtype):
+    """Every k the plan keeps resident fits one block's shared memory; the
+    pin's large grams (k=324, 504 in complex128) go to the blocked variant,
+    one launch per 32-wide tile column."""
+    _, dt = DTYPES[dtype]
+    size = torch.empty((), dtype=dt).element_size()
+    variants = set()
+    for k in range(1, 601):
+        plan = K.chol_inv_plan(k, dt)
+        variants.add(plan.variant)
+        if plan.variant == "resident":
+            assert plan.smem_bytes == k * (k | 1) * size <= K.SMEM_MAX
+            assert (plan.launches, plan.scratch) == (1, 0)
+        else:
+            assert k > K.CHOL_RESIDENT_MAX_K
+            assert plan.launches == -(-k // K.CHOL_NB) and plan.scratch == 2 * k * k
+            assert plan.smem_bytes <= K.SMEM_MAX
+    assert variants == {"resident", "blocked"}
+    fit = max(k for k in range(1, 601) if k * (k | 1) * size <= K.SMEM_MAX)
+    assert K.chol_inv_plan(fit, dt, "resident").smem_bytes <= K.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        K.chol_inv_plan(fit + 1, dt, "resident")
+    assert K.chol_inv_plan(20, dt, "blocked").launches == 1
+    if dt == torch.complex128:
+        assert K.chol_inv_plan(324, dt).variant == K.chol_inv_plan(504, dt).variant == "blocked"
+        assert (K.chol_inv_plan(324, dt).launches, K.chol_inv_plan(504, dt).launches) == (11, 16)
 
 
 # ---------------------------- CholeskyQR2 ---------------------------------
