@@ -8,8 +8,11 @@ Phases (each raises on failure; any failure exits nonzero with no result):
 
 1. device — a CUDA device is required; prints the card's name and power limit;
 2. build — compiles the hand-written kernels (csrc/*.cu, sm_90a);
-3. kernels — K1 fused_tensor and K2 chol_inv (both variants, resident and
-   blocked) against their plain PyTorch versions on the card, in complex64
+3. kernels — K1 fused_tensor, one tensor and a cell's three in one launch,
+   against its plain PyTorch version at D=2…8 in complex64 and complex128,
+   at D=3 in float32 and float64 and at D=9 (D read at run time), timed
+   beside the einsum library call and its bound; K2 chol_inv (both
+   variants, resident and blocked) against its plain version in complex64
    and complex128, with median times, and K2's two variants timed side by
    side around their switch, ops/kernels.CHOL_RESIDENT_MAX_K, in all four
    dtypes;
@@ -22,8 +25,9 @@ Phases (each raises on failure; any failure exits nonzero with no result):
 6. one BP sweep at N=2, D=3, χ=18 in complex64, timed;
 7. torch.profiler over one gram BP sweep at the pin's BP size (N=3, χ=36,
    complex128): device busy share and device time by kernel;
-8. a JSON line with every kernel's launches on the main path, error, times
-   and bound; the card's name and power limit; then the result line.
+8. a JSON line with K1's cases by D, then one with every kernel's launches
+   on the main path, error, times and bound; the card's name and power
+   limit; then the result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -47,7 +51,13 @@ PIN_GOLD = os.path.join(REPO, "tests", "assets", "pin_D3.json")
 PIN_TOL = 1e-9        # the JAX package's pin test bar
 SKETCH_TOL = 1e-6     # ceiling when a measured cause (the sketch) explains the gap
 C64_TOL = 1e-3        # complex64 energy bar of the c64 dry run
-K1_TOL = {"complex64": 1e-6, "complex128": 1e-14}   # absolute, unit-norm ket
+K1_TOL = {"float32": 1e-6, "float64": 1e-14,      # absolute, unit-norm ket
+          "complex64": 1e-6, "complex128": 1e-14}
+# K1's cases: D=2…8 (the pin's D=3 to the D=8 of simple-update records) in
+# both complex types, the real types at the pin's D, and one D above 8,
+# where the kernel reads D at run time
+K1_CASES = ([(n, D) for n in ("complex64", "complex128") for D in range(2, 9)]
+            + [("float32", 3), ("float64", 3), ("complex128", 9)])
 K2_TOL = {"complex64": 1e-5, "complex128": 1e-12}   # relative to max|L|, max|W|
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
@@ -123,32 +133,87 @@ def device_ms(torch, fn, calls=20, sleep_cycles=20_000_000):
     return start.elapsed_time(end) / calls
 
 
+def fused_library(torch, t):
+    """The one PyTorch call that computes K1's function, on a stacked cell
+    t [n, d, D,D,D,D]: an einsum over s, reshaped to [n, D²,D²,D²,D²] (a
+    copy, since the einsum's result is a permuted view). A yardstick only:
+    the port never calls it."""
+    n, D = t.shape[0], t.shape[2]
+    return torch.einsum("fsabce,fsABCE->faAbBcCeE", t, t.conj()).reshape((n,) + (D * D,) * 4)
+
+
+def fused_tensor_work(n, t):
+    """K1's flops and bytes for n tensors like t [d, D,D,D,D]: d multiply-adds
+    per output element (8 flops each in complex, 2 in real); t read once
+    and the D⁸ outputs written once, per tensor."""
+    d, D = t.shape[0], t.shape[1]
+    return n * (8 if t.dtype.is_complex else 2) * d * D ** 8, n * (d * D ** 4 + D ** 8) * t.element_size()
+
+
+def k1_checks(torch, K, dev, gen):
+    """Phase 3, K1: one tensor (fused_tensor_cuda) and a cell's three in one
+    launch (fused_tensors_cuda) against the plain version, timed beside the
+    einsum library call. Returns the list of cases and the row at the main
+    path's shape (a cell at D=3 in complex128)."""
+    by_D, row = [], None
+    for name, D in K1_CASES:
+        dt = getattr(torch, name)
+        cell = [torch.randn((2, D, D, D, D), generator=gen, dtype=dt) for _ in range(3)]
+        cell = [(t / torch.linalg.vector_norm(t)).to(dev) for t in cell]
+        stacked = torch.stack(cell)
+        t = cell[0]
+        err1 = (K.fused_tensor_cuda(t) - K.fused_tensor_ref(t)).abs().max().item()
+        errc = max((g - w).abs().max().item()
+                   for g, w in zip(K.fused_tensors_cuda(cell), K.fused_tensors_ref(cell)))
+        if not max(err1, errc) < K1_TOL[name]:
+            raise AssertionError(f"K1 disagrees with its plain version: {max(err1, errc)} at D={D} {name}")
+        case = {"dtype": name, "D": D, "runtime_D": D > 8, "max_abs_err": max(err1, errc)}
+        for label, n, fn, plain, lib in (
+                ("one", 1, lambda: K.fused_tensor_cuda(t), lambda: K.fused_tensor_ref(t),
+                 lambda: fused_library(torch, stacked[:1])),
+                ("cell", 3, lambda: K.fused_tensors_cuda(cell), lambda: K.fused_tensors_ref(cell),
+                 lambda: fused_library(torch, stacked))):
+            b_ms, b_by = bound(*fused_tensor_work(n, t))
+            dev_ms = device_ms(torch, fn)
+            case[label] = {"ms": _ms(torch, fn, budget_ms=100.0), "device_ms": dev_ms,
+                           "plain_ms": _ms(torch, plain, budget_ms=100.0),
+                           "library_ms": _ms(torch, lib, budget_ms=100.0),
+                           "library_device_ms": device_ms(torch, lib),
+                           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / dev_ms}
+        one, c3 = case["one"], case["cell"]
+        print(f"K1 fused_tensor {name} D={D}{' (runtime D)' if D > 8 else ''}: max_abs_err "
+              f"{err1:.3e} one / {errc:.3e} cell (tol {K1_TOL[name]:g}); " + "; ".join(
+                  f"{label}: kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, einsum "
+                  f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), "
+                  f"{100 * r['share_of_bound']:.1f}% of it"
+                  for label, r in (("one tensor", one), ("cell of 3, one launch", c3))))
+        by_D.append(case)
+        if (name, D) == ("complex128", 3):
+            row = {"max_abs_err": errc, **{k: c3[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")},
+                "shape": f"cell of 3, d=2, D={D}, {name}"}
+        del cell, stacked, t
+        torch.cuda.empty_cache()
+    # K1's targets on this card: half its byte bound or better at D=7 and 8,
+    # and no slower on the device than the einsum call at any D
+    short = [f"{c['dtype']} D={c['D']} {label}" for c in by_D if c["D"] in (7, 8)
+             for label in ("one", "cell") if c[label]["share_of_bound"] < 0.5]
+    behind = [f"{c['dtype']} D={c['D']} {label}" for c in by_D for label in ("one", "cell")
+              if c[label]["device_ms"] > c[label]["library_device_ms"]]
+    print(f"K1 targets: >= 50% of the byte bound at D=7, 8: {'met' if not short else 'missed at ' + ', '.join(short)}; "
+          f"no slower than einsum on the device: {'met' if not behind else 'missed at ' + ', '.join(behind)}")
+    return by_D, row
+
+
 def kernel_checks(torch, K, dev):
     """Phase 3: each kernel against its plain version, printed; returns the
-    K1 row measured at the main path's shape (D=3 in complex128)."""
+    K1 cases, and the rows measured at the main path's shapes."""
     gen = torch.Generator().manual_seed(0)
-    rows = {}
+    by_D, k1_row = k1_checks(torch, K, dev, gen)
+    rows = {"fused_tensor": k1_row}
     for name in ("complex64", "complex128"):
         dt = getattr(torch, name)
-        for D in (2, 3, 5):
-            t = torch.randn((2, D, D, D, D), generator=gen, dtype=dt)
-            t = (t / torch.linalg.vector_norm(t)).to(dev)
-            err = (K.fused_tensor_cuda(t) - K.fused_tensor_ref(t)).abs().max().item()
-            ms = _ms(torch, lambda: K.fused_tensor_cuda(t))
-            plain = _ms(torch, lambda: K.fused_tensor_ref(t))
-            print(f"K1 fused_tensor {name} D={D}: max_abs_err={err:.3e} (tol {K1_TOL[name]:g}) "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
-            if not err < K1_TOL[name]:
-                raise AssertionError(f"K1 disagrees with its plain version: {err} at D={D} {name}")
-            if D == 3 and name == "complex128":
-                size = t.element_size()
-                b_ms, b_by = bound(8 * 2 * D ** 8, (2 * D ** 4 + D ** 8) * size)
-                dev_ms = device_ms(torch, lambda: K.fused_tensor_cuda(t))
-                print(f"K1 fused_tensor {name} D={D}: device {dev_ms:.4f} ms per call "
-                      f"against {ms:.4f} ms per call with the host wrapper")
-                rows["fused_tensor"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                                        "device_ms": dev_ms, "shape": f"d=2, D={D}, {name}"}
         for k in (1, 6, 18, 37, 72, 81, 130, 300, 504):
             check_chol_inv(torch, K, dev, gen, dt, name, k)
     # the resident/blocked switch (ops/kernels.CHOL_RESIDENT_MAX_K): both
@@ -167,7 +232,7 @@ def kernel_checks(torch, K, dev):
                   f"(device {times['resident'][1]:.4f}), blocked {times['blocked'][0]:.4f} ms "
                   f"(device {times['blocked'][1]:.4f}); the plan takes "
                   f"{'resident' if k <= edge else 'blocked'} (switch at k={edge})")
-    return rows
+    return by_D, rows
 
 
 def _spd(torch, gen, dt, k):
@@ -301,14 +366,15 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s ({K.library_path().name})")
 
     # -- 3. kernels against their plain versions --
-    rows = kernel_checks(torch, K, dev)
+    by_D, rows = kernel_checks(torch, K, dev)
 
     # -- 4. the slice in complex128 --
     K.reset_launch_counts()
     os.environ.pop("KPBP_LINALG", None)
     res = measure.production_measurement(PIN_CELL, device=dev)
     counts_default = K.launch_counts()
-    print(f"c128 default linalg: launches {json.dumps(counts_default)}")
+    print(f"c128 default linalg: launches {json.dumps(counts_default)}; "
+          f"K1 launches {counts_default['fused_tensor']}")
     gap = report_pin(res, gold, "c128 default linalg")
 
     k_seen = {}
@@ -328,7 +394,7 @@ def main() -> int:
     counts = K.launch_counts()
     counts_gram = {n: counts[n] - counts_default[n] for n in counts}
     print(f"c128 KPBP_LINALG=gram: launches {json.dumps(counts_gram)}; "
-          f"K2 sizes k:count {json.dumps(dict(sorted(k_seen.items())))}")
+          f"K1 launches {counts_gram['fused_tensor']}; K2 sizes k:count {json.dumps(dict(sorted(k_seen.items())))}")
     gap_gram = report_pin(res_gram, gold, "c128 KPBP_LINALG=gram")
     if counts_default["fused_tensor"] <= 0 or counts_gram["fused_tensor"] <= 0:
         raise AssertionError("K1 was not launched by a slice run")
@@ -397,7 +463,8 @@ def main() -> int:
     d64 = energy_gap(res64, res)
     print(f"c64: mean_energy={res64['mean_energy']!r}; max|c64 - c128|={d64:.3e} "
           f"(tol {C64_TOL:g}); {res64['seconds']:.2f} s wall; BP {res64['bp_iterations']} "
-          f"iterations, {res64['bp_attempts']} attempt(s); launches {json.dumps(counts64)}")
+          f"iterations, {res64['bp_attempts']} attempt(s); launches {json.dumps(counts64)}; "
+          f"K1 launches {counts64['fused_tensor']}")
     if not d64 < C64_TOL:
         raise AssertionError(f"c64 slice differs from c128 by {d64}")
     if counts64["fused_tensor"] <= 0:
@@ -431,6 +498,7 @@ def main() -> int:
     kernels = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
                 "launches": launches[n], **{k: v for k, v in rows[n].items() if k != "g"}}
                for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked")]
+    print(json.dumps({"fused_tensor_by_D": by_D}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

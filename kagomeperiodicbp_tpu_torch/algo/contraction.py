@@ -12,9 +12,10 @@ import torch
 from ..lattices import BlockSide
 from ..lattices.kagome import num_message_sites
 from ..networks.graph import TNGraph, full_graph, message_bond_profile
-from ..networks.unit_cell import FLAVORS, UnitCell, fused_tensor
+from ..networks.unit_cell import FLAVORS, UnitCell
 from ..ops import mps as mpslib
 from ..ops.contract import execute_plan
+from ..ops.kernels import fused_tensors
 from ..ops.mps import MPS
 from ..planner.compiler import Plan, compile_plan
 
@@ -48,8 +49,8 @@ def full_scalar_plan(N: int, D: int, chi: int, chi_msg: int, toward: int = int(B
 
 
 def fused_cells(cell: UnitCell) -> Tuple[torch.Tensor, ...]:
-    """The 3 fused double-layer tensors (kernel K1 on the card)."""
-    return tuple(fused_tensor(cell[f]) for f in FLAVORS)
+    """The 3 fused double-layer tensors (one launch of kernel K1 on the card)."""
+    return fused_tensors(tuple(cell[f] for f in FLAVORS))
 
 
 def _make_fetch(fused: Sequence[torch.Tensor], msgs: MsgSites):

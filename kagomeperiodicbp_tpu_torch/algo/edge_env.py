@@ -32,8 +32,9 @@ import torch
 from ..enums import UpdateEdge
 from ..lattices import BlockSide, KagomeBlock, LatticeDir
 from ..networks.graph import TNGraph
-from ..networks.unit_cell import UnitCell, fused_tensor
+from ..networks.unit_cell import UnitCell
 from ..ops.contract import execute_plan
+from ..ops.kernels import fused_tensors
 from ..ops.mps import MPS
 from ..planner.compiler import Plan, compile_plan
 from . import contraction as C
@@ -235,7 +236,7 @@ def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
     * msg_sites — dict side-int → tuple of message site tensors.
 
     Returns (t1, t2, env, (perm1, perm2)) — see `edge_environment`. The three
-    fused tensors come from kernel K1 on the card.
+    fused tensors come from one launch of kernel K1 on the card.
     """
     if single_layer:
         raise NotImplementedError("single-layer edge environments are not ported yet")
@@ -247,7 +248,7 @@ def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
     if geo.chain[i1 + 1] != n2:
         raise AssertionError("pair must be chain-adjacent")
 
-    fused = tuple(fused_tensor(c) for c in cells)
+    fused = fused_tensors(cells)
     fetch_plan = C._make_fetch(fused, msg_sites)
     top = execute_plan(geo.top_plan, fetch_plan)
     bot = execute_plan(geo.bot_plan, fetch_plan)

@@ -1,68 +1,153 @@
-// K1 · fused_tensor: the double-layer (ket ⊗ bra) tensor of one site.
+// K1 · fused_tensor: the double-layer (ket ⊗ bra) tensors of a unit cell.
 //
 // Replaces: kagomeperiodicbp_tpu/ops/pallas_kernels.py · fused_tensor_pallas
 // (kernel _fused_kernel_real), the Pallas twin of networks/unit_cell.fused_tensor.
 //
-//   out[(aA),(bB),(cC),(eE)] = Σ_s T[s,a,b,c,e] · conj(T[s,A,B,C,E])
+//   out_f[(aA),(bB),(cC),(eE)] = Σ_s T_f[s,a,b,c,e] · conj(T_f[s,A,B,C,E])
 //
-// with T [d, D,D,D,D] and out [D²,D²,D²,D²], (aA) = a·D + A.
+// for up to three tensors T_f [d, D,D,D,D] of one cell (the flavours A, B,
+// C), each giving out_f [D²,D²,D²,D²] with (aA) = a·D + A; the outputs lie
+// one after another in one buffer.
 //
-// What bounds it on this card: device-memory writes. The output has D⁸
-// elements (16.8 M at D=8, 268 MB in complex128) and each one costs only d
-// (= 2) complex multiply-adds, while the input is d·D⁴ elements (8 192 at
-// D=8) and stays in L1/L2. So the kernel is a store stream.
+// What bounds it on this card: device-memory writes. Each output has D⁸
+// elements (16.8 M at D=8, 268 MB in complex128) and each element costs only
+// d (= 2) complex multiply-adds, while the input is d·D⁴ elements. So the
+// kernel is a store stream, and what it must keep off the critical path is
+// everything else: index arithmetic, operand reads and launches.
 //
-// What the design does about it: one thread per output element in a
-// grid-stride loop, consecutive threads on consecutive output addresses, so
-// every element is written exactly once with coalesced stores; each thread
-// decodes (a,A,b,B,c,C,e,E) from its flat index and reads its 2·d inputs
-// through the read-only cache. Complex values stay in their interleaved
-// storage (float2/double2): the re/im planes of the Pallas kernel existed
-// only because the TPU has no complex type.
+// What the design does about it:
+// * one block per output slab: block (f, aA, bB) writes the D⁴ contiguous
+//   elements out_f[aA, bB, :, :], and every one of them is built from the
+//   same ket rows T_f[:, a, b, :, :] and bra rows T_f[:, A, B, :, :]. The
+//   block stages those 2·d·D² elements into shared memory once, reading T
+//   through its own strides (a permuted cell needs no copy first);
+// * within the slab the element (cC, eE) sits at ((c·D + C)·D + e)·D + E,
+//   a 32-bit index; D is a template parameter for D = 1…8, so its divisions
+//   are multiply-shifts, and the same body with D read at run time (DT = 0)
+//   serves larger D;
+// * 16-byte vector stores along the slab (four float, two double, two
+//   complex64 or one complex128 per store), neighbouring threads on
+//   neighbouring addresses; where D⁴ is not a multiple of the vector width
+//   (odd D in the narrow types) the slab's ragged ends are stored singly;
+// * one launch for all three flavours of a cell: the grid is n·D⁴ blocks
+//   and the inputs come in one struct of pointers and strides.
 #include "common.cuh"
 
-template <typename T>
-__global__ void fused_tensor_kernel(const T* __restrict__ t, T* __restrict__ out,
-                                    int d, int D) {
+// The inputs of one launch: up to three tensors T_f [d, D,D,D,D] with their
+// strides in elements, and the output buffer, [n, D²,D²,D²,D²] contiguous.
+struct FusedTensorsArgs {
+  const void* t[3];
+  long long stride[3][5];
+  void* out;
+};
+static_assert(sizeof(FusedTensorsArgs) == 152, "ops/kernels.py _FusedArgs packs 19 fields of 8 bytes");
+
+// The 16-byte vector a store writes, and how many scalars it holds.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; static constexpr int n = 4; };
+template <> struct Vec16<double> { using type = double2; static constexpr int n = 2; };
+template <> struct Vec16<float2> { using type = float4; static constexpr int n = 2; };
+template <> struct Vec16<double2> { using type = double2; static constexpr int n = 1; };
+
+template <typename T, int DT>
+__global__ void fused_tensors_kernel(const FusedTensorsArgs args, int d, int D_rt) {
   using S = Scalar<T>;
-  const long long p = (long long)D * D;
-  const long long d4 = p * p;
-  const long long n = d4 * d4;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += stride) {
-    long long r = idx;
-    const int eE = (int)(r % p); r /= p;
-    const int cC = (int)(r % p); r /= p;
-    const int bB = (int)(r % p); r /= p;
-    const int aA = (int)r;
-    const int ket = (((aA / D) * D + bB / D) * D + cC / D) * D + eE / D;
-    const int bra = (((aA % D) * D + bB % D) * D + cC % D) * D + eE % D;
+  using V = typename Vec16<T>::type;
+  constexpr int VN = Vec16<T>::n;
+  const int D = DT ? DT : D_rt;
+  const int D2 = D * D;
+  const int n = D2 * D2;  // elements of one slab
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ket = reinterpret_cast<T*>(smem_raw);  // [d][c][e]
+  T* bra = ket + d * D2;                    // [d][C][E]
+
+  // block → (f, aA, bB)
+  const int f = blockIdx.x / n;
+  const int slab = blockIdx.x - f * n;
+  const int aA = slab / D2, bB = slab - (slab / D2) * D2;
+  const int a = aA / D, A = aA - (aA / D) * D;
+  const int b = bB / D, B = bB - (bB / D) * D;
+
+  // flavour f's pointer and strides, each picked by value (no indexing into
+  // the parameter struct with a runtime f)
+  const T* t = static_cast<const T*>(f == 0 ? args.t[0] : f == 1 ? args.t[1] : args.t[2]);
+  auto stride = [&](int k) {
+    return f == 0 ? args.stride[0][k] : f == 1 ? args.stride[1][k] : args.stride[2][k];
+  };
+  const long long st_s = stride(0), st_a = stride(1), st_b = stride(2);
+  const long long st_c = stride(3), st_e = stride(4);
+  const long long row_ket = a * st_a + b * st_b;
+  const long long row_bra = A * st_a + B * st_b;
+  for (int i = threadIdx.x; i < 2 * d * D2; i += blockDim.x) {
+    const int which = i >= d * D2;
+    const int r = i - which * d * D2;
+    const int s = r / D2, ce = r - (r / D2) * D2;
+    const int c = ce / D, e = ce - (ce / D) * D;
+    ket[i] = __ldg(t + (which ? row_bra : row_ket) + s * st_s + c * st_c + e * st_e);
+  }
+  __syncthreads();
+
+  // the slab's element j = ((c·D + C)·D + e)·D + E
+  auto value = [&](int j) {
+    const int E = j % D; j /= D;
+    const int e = j % D; j /= D;
+    const int C = j % D;
+    const int c = j / D;
+    const T* k = ket + c * D + e;
+    const T* w = bra + C * D + E;
     T acc = S::zero();
-    for (int s = 0; s < d; ++s) {
-      acc = S::mul_add_conj(acc, __ldg(t + s * d4 + ket), __ldg(t + s * d4 + bra));
-    }
-    out[idx] = acc;
+    for (int s = 0; s < d; ++s) acc = S::mul_add_conj(acc, k[s * D2], w[s * D2]);
+    return acc;
+  };
+
+  T* out = static_cast<T*>(args.out) + (long long)blockIdx.x * n;
+  // elements before the first 16-byte boundary, then whole vectors, then the rest
+  const int head = min(n, (int)((VN - ((long long)blockIdx.x * n) % VN) % VN));
+  const int nvec = (n - head) / VN;
+  const int tail = head + nvec * VN;
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const int j0 = head + v * VN;
+    union { T s[VN]; V v; } pack;
+#pragma unroll
+    for (int q = 0; q < VN; ++q) pack.s[q] = value(j0 + q);
+    *reinterpret_cast<V*>(out + j0) = pack.v;
+  }
+  if ((int)threadIdx.x < head) out[threadIdx.x] = value(threadIdx.x);
+  if (tail + (int)threadIdx.x < n) out[tail + threadIdx.x] = value(tail + threadIdx.x);
+}
+
+template <typename T, int DT>
+static void launch_fused(const FusedTensorsArgs& args, int nt, int d, int D, cudaStream_t stream) {
+  const int n = D * D * D * D;
+  const int vecs = (n + Vec16<T>::n - 1) / Vec16<T>::n;
+  const int threads = vecs >= 256 ? 256 : ((vecs + 31) / 32) * 32;
+  const size_t smem = 2 * (size_t)d * D * D * sizeof(T);
+  fused_tensors_kernel<T, DT><<<(unsigned)(nt * n), threads, smem, stream>>>(args, d, D);
+}
+
+template <typename T>
+static void launch_fused_d(const FusedTensorsArgs& args, int nt, int d, int D, cudaStream_t s) {
+  switch (D) {
+    case 1: launch_fused<T, 1>(args, nt, d, D, s); break;
+    case 2: launch_fused<T, 2>(args, nt, d, D, s); break;
+    case 3: launch_fused<T, 3>(args, nt, d, D, s); break;
+    case 4: launch_fused<T, 4>(args, nt, d, D, s); break;
+    case 5: launch_fused<T, 5>(args, nt, d, D, s); break;
+    case 6: launch_fused<T, 6>(args, nt, d, D, s); break;
+    case 7: launch_fused<T, 7>(args, nt, d, D, s); break;
+    case 8: launch_fused<T, 8>(args, nt, d, D, s); break;
+    default: launch_fused<T, 0>(args, nt, d, D, s); break;
   }
 }
 
-template <typename T>
-static void launch_fused(const void* t, void* out, int d, int D, cudaStream_t stream) {
-  const long long p = (long long)D * D;
-  const long long n = p * p * p * p;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond ~64 blocks per SM
-  fused_tensor_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(t), static_cast<T*>(out), d, D);
-}
-
-// t: contiguous [d, D,D,D,D]; out: contiguous [D²,D²,D²,D²]; both of `dtype`.
-// Returns cudaGetLastError() after the launch.
-extern "C" int kpbp_fused_tensor(const void* t, void* out, int d, int D, int dtype,
-                                 void* stream) {
+// nt (1..3) tensors [d, D,D,D,D] of `dtype`, read through args.stride; the
+// output args.out is [nt, D²,D²,D²,D²], contiguous and 16-byte aligned.
+// Returns cudaGetLastError() after the one launch.
+extern "C" int kpbp_fused_tensors(FusedTensorsArgs args, int nt, int d, int D, int dtype,
+                                  void* stream) {
+  if (nt < 1 || nt > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define KPBP_LAUNCH(T) launch_fused<T>(t, out, d, D, s)
+#define KPBP_LAUNCH(T) launch_fused_d<T>(args, nt, d, D, s)
   KPBP_DISPATCH(dtype, KPBP_LAUNCH)
 #undef KPBP_LAUNCH
   return (int)cudaGetLastError();

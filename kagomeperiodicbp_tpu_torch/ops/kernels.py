@@ -2,7 +2,9 @@
 and the build that turns ``csrc/*.cu`` into a shared library.
 
 * K1 ``fused_tensor`` — the double-layer tensor of one site
-  (``csrc/fused_tensor.cu``; replaces ``fused_tensor_pallas``).
+  (``csrc/fused_tensor.cu``; replaces ``fused_tensor_pallas``);
+  ``fused_tensors`` makes those of a whole cell (up to three flavours) in
+  one launch. Both read their inputs through the inputs' own strides.
 * K2 ``chol_inv`` — Cholesky factor L of a Hermitian PSD G and W = L⁻¹
   (``csrc/chol_inv.cu``; replaces ``chol_inv_pallas``), in two variants
   that ``chol_inv_plan`` picks from k: ``resident`` (the matrix in one
@@ -15,8 +17,8 @@ version; a CUDA tensor launches the kernel or raises. Nothing falls back.
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``kagomeperiodicbp_tpu_torch/_build/``, under a name keyed by a hash of the
 sources, and bound with ``ctypes`` (a plain C interface: no PyTorch headers,
-so the build takes seconds). ``fused_tensor_cuda`` counts its launches in
-its ``launches`` attribute, ``chol_inv_cuda`` in that of the variant it ran
+so the build takes seconds). K1's wrappers count their launches in
+``FUSED_TENSOR.launches``, ``chol_inv_cuda`` in those of the variant it ran
 (``CHOL_INV_VARIANTS``); ``launch_counts`` reads them by kernel name.
 """
 from __future__ import annotations
@@ -25,11 +27,12 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from functools import lru_cache
 from pathlib import Path
 from types import SimpleNamespace
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -95,8 +98,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kpbp_fused_tensor.argtypes = [p, p, i, i, i, p]
-    lib.kpbp_fused_tensor.restype = i
+    lib.kpbp_fused_tensors.argtypes = [_FusedArgs, i, i, i, i, p]
+    lib.kpbp_fused_tensors.restype = i
     lib.kpbp_chol_inv.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.kpbp_chol_inv.restype = i
     lib.kpbp_chol_inv_smem.argtypes = [i, i, i]
@@ -115,8 +118,12 @@ def _check_cuda(x: torch.Tensor, who: str) -> int:
     return _DTYPE_CODE[x.dtype]
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(x: torch.Tensor) -> int:
+    """The raw handle of the current stream on x's device. The handle alone,
+    as PyTorch's own generated code takes it: on an H100 host, building the
+    ``torch.cuda.Stream`` object cost 7.6–9.3 µs per launch and this
+    0.1–0.4 µs (PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def _raise_on(rc: int, who: str):
@@ -135,26 +142,93 @@ def fused_tensor_ref(t: torch.Tensor) -> torch.Tensor:
     return tt.reshape(D * D, D * D, D * D, D * D)
 
 
-def fused_tensor_cuda(t: torch.Tensor) -> torch.Tensor:
-    """K1 on the card: t contiguous [d, D,D,D,D] → [D²,D²,D²,D²]."""
-    code = _check_cuda(t, "fused_tensor_cuda")
-    if t.ndim != 5 or len(set(t.shape[1:])) != 1:
-        raise ValueError(f"fused_tensor_cuda: expected [d, D,D,D,D], got {tuple(t.shape)}")
-    d, D = t.shape[0], t.shape[1]
-    out = torch.empty((D * D,) * 4, dtype=t.dtype, device=t.device)
-    rc = build().kpbp_fused_tensor(t.data_ptr(), out.data_ptr(), d, D, code, _stream())
-    fused_tensor_cuda.launches += 1
-    _raise_on(rc, "fused_tensor_cuda")
+def fused_tensors_ref(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    return tuple(fused_tensor_ref(t) for t in ts)
+
+
+class _FusedArgs(ctypes.Structure):
+    """csrc/fused_tensor.cu FusedTensorsArgs: up to three inputs (pointer,
+    strides in elements) and the output buffer, passed by value."""
+    _fields_ = [("t", ctypes.c_void_p * 3), ("stride", (ctypes.c_longlong * 5) * 3),
+                ("out", ctypes.c_void_p)]
+
+
+# the same 19 fields packed in one call: several times cheaper per launch
+# than building _FusedArgs from nested tuples
+_FUSED_ARGS = struct.Struct("<3q15qq")
+# K1 stages 2·d·D² input elements per block in shared memory
+_K1_SMEM_MAX = 48 * 1024
+
+
+def _fused_dims(ts: Sequence[torch.Tensor], who: str) -> Tuple[int, int]:
+    """(d, D) of one cell's 1 to 3 tensors, all of one shape [d, D,D,D,D]."""
+    if not 1 <= len(ts) <= 3:
+        raise ValueError(f"{who}: takes 1 to 3 tensors, got {len(ts)}")
+    shape = ts[0].shape
+    if len(shape) != 5 or not shape[1] == shape[2] == shape[3] == shape[4]:
+        raise ValueError(f"{who}: expected [d, D,D,D,D], got {tuple(shape)}")
+    for t in ts[1:]:
+        if t.shape != shape:
+            raise ValueError(f"{who}: the flavours differ in shape, {tuple(shape)} and {tuple(t.shape)}")
+    return shape[0], shape[1]
+
+
+def _fused_launch(ts: Sequence[torch.Tensor], lead: Tuple[int, ...], who: str) -> torch.Tensor:
+    """One K1 launch: fused_tensor_ref(ts[f]) for every f, into one new
+    contiguous tensor of shape lead + [D²]*4 (lead is () or (len(ts),)).
+    Each input is read through its own strides."""
+    d, D = _fused_dims(ts, who)
+    t0 = ts[0]
+    dtype, device = t0.dtype, t0.get_device()
+    ptrs, strides = [0, 0, 0], [0] * 15
+    for f, t in enumerate(ts):
+        if not t.is_cuda:
+            raise ValueError(f"{who}: expected CUDA tensors, got {t.device}")
+        if t.dtype != dtype or t.get_device() != device:
+            raise TypeError(f"{who}: the flavours differ in dtype or device")
+        ptrs[f] = t.data_ptr()
+        strides[5 * f:5 * f + 5] = t.stride()
+    code = _DTYPE_CODE.get(dtype)
+    if code is None:
+        raise TypeError(f"{who}: unsupported dtype {dtype}")
+    if 2 * d * D * D * t0.element_size() > _K1_SMEM_MAX:
+        raise ValueError(f"{who}: d={d}, D={D} stages more than {_K1_SMEM_MAX} B per block")
+    out = torch.empty(lead + (D * D,) * 4, dtype=dtype, device=t0.device)
+    args = _FusedArgs.from_buffer_copy(_FUSED_ARGS.pack(*ptrs, *strides, out.data_ptr()))
+    rc = build().kpbp_fused_tensors(args, len(ts), d, D, code, _stream(t0))
+    FUSED_TENSOR.launches += 1
+    _raise_on(rc, who)
     return out
 
 
-fused_tensor_cuda.launches = 0
+def fused_tensor_cuda(t: torch.Tensor) -> torch.Tensor:
+    """K1 on the card: t [d, D,D,D,D], any strides → [D²,D²,D²,D²]."""
+    return _fused_launch((t,), (), "fused_tensor_cuda")
+
+
+def fused_tensors_cuda(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """K1 on the card for one cell: 1 to 3 tensors [d, D,D,D,D] of one
+    shape and dtype, any strides, in one launch → one [D²,D²,D²,D²] each."""
+    return _fused_launch(ts, (len(ts),), "fused_tensors_cuda").unbind(0)
+
+
+# the launch count of K1 (both wrappers launch the same kernel)
+FUSED_TENSOR = SimpleNamespace(launches=0)
 
 
 def fused_tensor(t: torch.Tensor) -> torch.Tensor:
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return fused_tensor_ref(t)
-    return fused_tensor_cuda(t.contiguous())
+    return fused_tensor_cuda(t)
+
+
+def fused_tensors(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The fused tensors of a cell's 1 to 3 flavours: one K1 launch on the
+    card, the plain version on the CPU."""
+    if ts[0].is_cpu:
+        _fused_dims(ts, "fused_tensors")
+        return fused_tensors_ref(ts)
+    return fused_tensors_cuda(ts)
 
 
 # ------------------------------- K2 ---------------------------------------
@@ -229,7 +303,7 @@ def chol_inv_cuda(g: torch.Tensor, variant: str = "") -> Tuple[torch.Tensor, tor
     w = torch.empty_like(g)
     rc = build().kpbp_chol_inv(g.data_ptr(), scratch.data_ptr() if scratch is not None else None,
                                l.data_ptr(), w.data_ptr(), k, batch, code,
-                               _VARIANT_CODE[plan.variant], _stream())
+                               _VARIANT_CODE[plan.variant], _stream(g))
     CHOL_INV_VARIANTS[plan.variant].launches += 1
     _raise_on(rc, f"chol_inv_cuda ({plan.variant})")
     return l, w
@@ -248,7 +322,7 @@ def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # ------------------------------ counters ----------------------------------
 
-KERNELS = {"fused_tensor": fused_tensor_cuda,
+KERNELS = {"fused_tensor": FUSED_TENSOR,
            "chol_inv_resident": CHOL_INV_VARIANTS["resident"],
            "chol_inv_blocked": CHOL_INV_VARIANTS["blocked"]}
 

@@ -42,26 +42,93 @@ def _gram(k, dtype, batch=()):
     return b @ b.mH + k * torch.eye(k, dtype=dtype)
 
 
+def _ket(D, dtype, seed, d=2):
+    t = _randn((d, D, D, D, D), dtype, seed=seed)
+    return t / torch.linalg.vector_norm(t)
+
+
+def _k1_launches():
+    return K.launch_counts()["fused_tensor"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("D", [2, 3, 5])
 def test_fused_tensor_cuda_matches_ref(cuda, D, dtype):
-    t = _randn((2, D, D, D, D), DTYPES[dtype], seed=D)
-    t = (t / torch.linalg.vector_norm(t)).to(cuda)
-    before = K.fused_tensor_cuda.launches
+    t = _ket(D, DTYPES[dtype], seed=D).to(cuda)
+    before = _k1_launches()
     got = K.fused_tensor(t)
     torch.cuda.synchronize()
-    assert K.fused_tensor_cuda.launches == before + 1
+    assert _k1_launches() == before + 1
     assert (got - K.fused_tensor_ref(t)).abs().max().item() < K1_ATOL[dtype]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [2, 3, 5, 8])
+def test_fused_tensors_cuda_matches_ref(cuda, D, dtype):
+    """A cell's three tensors in one launch, against the plain version."""
+    cell = [_ket(D, DTYPES[dtype], seed=10 * D + i).to(cuda) for i in range(3)]
+    before = _k1_launches()
+    got = K.fused_tensors(cell)
+    torch.cuda.synchronize()
+    assert _k1_launches() == before + 1
+    for g, want in zip(got, K.fused_tensors_ref(cell)):
+        assert g.shape == want.shape and g.dtype == want.dtype
+        assert (g - want).abs().max().item() < K1_ATOL[dtype]
+
+
+@pytest.mark.cuda
 def test_fused_tensor_cuda_takes_strided_input(cuda):
+    """A permuted (non-contiguous) tensor launches K1 as it is, with no copy."""
     t = _randn((2, 3, 3, 3, 3), torch.complex128, seed=1).to(cuda).permute(0, 2, 3, 4, 1)
-    np.testing.assert_allclose(K.fused_tensor(t).cpu().numpy(),
-                               K.fused_tensor_ref(t).cpu().numpy(), atol=1e-14)
-    with pytest.raises(ValueError, match="contiguous"):
-        K.fused_tensor_cuda(t)
+    assert not t.is_contiguous()
+    before = _k1_launches()
+    got = K.fused_tensor_cuda(t)
+    assert _k1_launches() == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), K.fused_tensor_ref(t).cpu().numpy(), atol=1e-14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("turns", [1, 2])
+def test_fused_cells_of_rotated_cell_one_launch(cuda, turns, dtype):
+    """A rotated cell's flavours are permuted views of the canonical ones:
+    fused_cells makes all three in one launch and matches the plain path."""
+    data = {f: _ket(3, DTYPES[dtype], seed=i).numpy() for i, f in enumerate("ABC")}
+    cells = {}
+    for dev in ("cpu", cuda):
+        cells[str(dev)] = unit_cell_from_numpy(data, device=dev)
+        for _ in range(turns):
+            cells[str(dev)] = cells[str(dev)].rotate_ccw()
+    assert not cells[str(cuda)].A.is_contiguous()
+    before = _k1_launches()
+    got = C.fused_cells(cells[str(cuda)])
+    torch.cuda.synchronize()
+    assert _k1_launches() == before + 1
+    for g, want in zip(got, C.fused_cells(cells["cpu"])):
+        assert (g.cpu() - want).abs().max().item() < K1_ATOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,d", [("f32", 9, 1), ("c64", 9, 2), ("c128", 9, 1)])
+def test_fused_tensors_cuda_runtime_D(cuda, D, d, dtype):
+    """Above D=8 the kernel reads D at run time (one body for every D)."""
+    cell = [_ket(D, DTYPES[dtype], seed=i, d=d).to(cuda) for i in range(2)]
+    got = K.fused_tensors(cell)
+    for g, t in zip(got, cell):
+        assert (g - K.fused_tensor_ref(t)).abs().max().item() < K1_ATOL[dtype]
+
+
+@pytest.mark.cuda
+def test_fused_tensors_cuda_rejects_mismatched_inputs(cuda):
+    a = _ket(2, torch.complex128, seed=0).to(cuda)
+    with pytest.raises(ValueError, match="differ in shape"):
+        K.fused_tensors_cuda((a, _ket(3, torch.complex128, seed=0).to(cuda)))
+    with pytest.raises(TypeError, match="differ in dtype"):
+        K.fused_tensors_cuda((a, a.to(torch.complex64)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.fused_tensors_cuda((a, a.cpu()))
 
 
 def _size(name, dtype):

@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from kagomeperiodicbp_tpu.networks.unit_cell import UnitCell as JUnitCell
 from kagomeperiodicbp_tpu.networks.unit_cell import fused_tensor as jax_fused_tensor
 from kagomeperiodicbp_tpu.ops import linalg as JL
 from kagomeperiodicbp_tpu.ops.pallas_kernels import chol_inv_pallas, fused_tensor_pallas
+from kagomeperiodicbp_tpu_torch.convert import unit_cell_from_numpy
 from kagomeperiodicbp_tpu_torch.ops import kernels as K
 from kagomeperiodicbp_tpu_torch.ops import linalg as TL
 
@@ -74,9 +76,39 @@ def test_fused_tensor_ref_matches_pallas(D, dtype, atol):
 def test_fused_tensor_on_cpu_takes_plain_version():
     K.reset_launch_counts()
     K.fused_tensor(torch.from_numpy(_ket(2, np.complex128)))
+    K.fused_tensors([torch.from_numpy(_ket(2, np.complex128, seed=s)) for s in range(3)])
     assert K.launch_counts() == {"fused_tensor": 0, "chol_inv_resident": 0, "chol_inv_blocked": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.fused_tensor_cuda(torch.zeros((2, 2, 2, 2, 2), dtype=torch.complex128))
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_fused_tensors_of_rotated_cell_match_jax(D):
+    """One numpy cell, rotated once by each package's rotate_ccw (permuted,
+    non-contiguous views in the port): the plain path of fused_tensors
+    against the JAX fused_tensor of each flavour, complex128."""
+    cell_np = {f: _ket(D, np.complex128, seed=10 * i) for i, f in enumerate("ABC")}
+    jcell = JUnitCell(*(jnp.asarray(cell_np[f]) for f in "ABC")).rotate_ccw()
+    tcell = unit_cell_from_numpy(cell_np).rotate_ccw()
+    assert not tcell.A.is_contiguous()
+    got = K.fused_tensors((tcell.A, tcell.B, tcell.C))
+    assert len(got) == 3
+    for f, g in zip("ABC", got):
+        assert g.shape == (D * D,) * 4
+        np.testing.assert_allclose(g.numpy(), np.asarray(jax_fused_tensor(getattr(jcell, f))),
+                                   atol=1e-12)
+
+
+def test_fused_tensors_checks_its_inputs():
+    a, c = (torch.from_numpy(_ket(D, np.complex128)) for D in (2, 3))
+    with pytest.raises(ValueError, match="differ in shape"):
+        K.fused_tensors((a, a, c))
+    with pytest.raises(ValueError, match="1 to 3 tensors"):
+        K.fused_tensors((a,) * 4)
+    with pytest.raises(ValueError, match=r"\[d, D,D,D,D\]"):
+        K.fused_tensors((a[..., :1],))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.fused_tensors_cuda((a, a, a))
 
 
 # ------------------------------- K2 ---------------------------------------
