@@ -25,9 +25,18 @@ Phases (each raises on failure; any failure exits nonzero with no result):
 6. one BP sweep at N=2, D=3, χ=18 in complex64, timed;
 7. torch.profiler over one gram BP sweep at the pin's BP size (N=3, χ=36,
    complex128): device busy share and device time by kernel;
-8. a JSON line with K1's cases by D, then one with every kernel's launches
-   on the main path, error, times and bound; the card's name and power
-   limit; then the result line.
+8. ITE on the card, the JAX bench's configuration (N=2, D=3, χ_env=28,
+   χ_msg=18, edge (A,B), als_iters=10, AFM Heisenberg, dt=1e-3, messages
+   from BP on the pin cell): one edge update timed in complex64 and
+   complex128, default linear algebra and KPBP_LINALG=gram, with K1's and
+   K2's launches per update and a profile of one update; the complex128
+   update on the card against the CPU port (default and gram) on what the
+   bond gauge leaves fixed; a short full_ite (random D=3 cell, 2 segments
+   at dt=0.1, one mode each, BP once per segment) that must lower the
+   energy with no ITEError;
+9. a JSON line with K1's cases by D, one with the ITE numbers, then one
+   with every kernel's launches on the main paths, error, times and bound;
+   the card's name and power limit; then the result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -287,35 +296,26 @@ def report_pin(res, gold, label) -> float:
     return gap
 
 
-def profile_gram_sweep(torch, C, F, UnitCell, dev):
-    """One BP sweep at the pin's BP size (N=3, χ=36, complex128) under
-    KPBP_LINALG=gram, after one warm-up sweep: device busy share over the
-    sweep and the kernels that take most of its device time."""
+def profile_once(torch, dev, fn):
+    """(wall seconds, device events) of one call of `fn` under
+    torch.profiler, ending in a synchronise."""
     from torch.profiler import ProfilerActivity, profile
 
-    cell = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex128).force_zero_rotation()
-    fused = C.fused_cells(cell)
-    msgs = F._msgs_to_sites(C.initial_messages(3, cell.D, 36, dtype=torch.complex128, device=dev))
-    sweep = F.bp_iteration(3, cell.D, 36, 36, None)
-    os.environ["KPBP_LINALG"] = "gram"
-    try:
-        msgs, err = sweep(fused, msgs)
-        float(err)
+    # a profiler's first session in a process can miss device activity:
+    # open one, and drop it, before the session whose numbers are kept
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1024, device=dev).sum()
         torch.cuda.synchronize()
-        # a profiler's first session in a process can miss device activity:
-        # open one, and drop it, before the session whose numbers are kept
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-            torch.ones(1024, device=dev).sum()
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            msgs, err = sweep(fused, msgs)
-            float(err)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        os.environ.pop("KPBP_LINALG", None)
-    events = device_events(torch, prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, device_events(torch, prof)
+
+
+def device_summary(events, wall):
+    """(busy share of `wall`, device seconds, device seconds by name)."""
     busy, end = 0.0, float("-inf")
     for _, a, b in sorted(events, key=lambda e: e[1]):
         if b > end:
@@ -326,14 +326,224 @@ def profile_gram_sweep(torch, C, F, UnitCell, dev):
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     device = sum(by_name.values())
     if not device > 0:
-        raise AssertionError("torch.profiler saw no device time in the gram sweep")
-    top = ", ".join(f"{name[:60]} {100 * t / device:.1f}%"
-                    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    k2 = sum(t for name, t in by_name.items() if "chol_inv" in name)
+        raise AssertionError("torch.profiler saw no device time")
+    return busy / 1e6 / wall, device / 1e6, by_name
+
+
+def top_device(by_name, n=6):
+    device = sum(by_name.values())
+    return [(name[:60], round(100 * t / device, 1))
+            for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def profile_gram_sweep(torch, C, F, UnitCell, dev):
+    """One BP sweep at the pin's BP size (N=3, χ=36, complex128) under
+    KPBP_LINALG=gram, after one warm-up sweep: device busy share over the
+    sweep and the kernels that take most of its device time."""
+    cell = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex128).force_zero_rotation()
+    fused = C.fused_cells(cell)
+    msgs = F._msgs_to_sites(C.initial_messages(3, cell.D, 36, dtype=torch.complex128, device=dev))
+    sweep = F.bp_iteration(3, cell.D, 36, 36, None)
+    os.environ["KPBP_LINALG"] = "gram"
+    try:
+        msgs, err = sweep(fused, msgs)
+        float(err)
+        torch.cuda.synchronize()
+        wall, events = profile_once(torch, dev, lambda: float(sweep(fused, msgs)[1]))
+    finally:
+        os.environ.pop("KPBP_LINALG", None)
+    busy, device, by_name = device_summary(events, wall)
+    top = ", ".join(f"{name} {pct}%" for name, pct in top_device(by_name))
+    k2 = sum(t for name, t in by_name.items() if "chol_inv" in name) / 1e6
     print(f"profile gram sweep N=3 chi=36 c128: {wall:.3f} s wall under the profiler; device "
-          f"busy {100 * busy / 1e6 / wall:.1f}% ({len(events)} device events, "
-          f"{device / 1e6:.3f} s of device time, K2 {100 * k2 / device:.1f}% of it); "
+          f"busy {100 * busy:.1f}% ({len(events)} device events, "
+          f"{device:.3f} s of device time, K2 {100 * k2 / device:.1f}% of it); "
           f"top device time: {top}")
+
+
+# the JAX bench's ITE configuration (bench.py, ite_steps_per_second)
+ITE_N, ITE_CHI, ITE_CHI_MSG, ITE_DT, ITE_ALS = 2, 28, 18, 1e-3, 10
+ITE_REPS = 5          # timed updates after one warm-up
+ITE_TOL = 1e-10       # card against CPU, complex128
+# θ and |t'| go through ALS solves whose conditioning amplifies round-off
+# (the reduced environment's rj⁻ᵀ, ROADMAP queue 3): there the gap is held to
+# 100× what a 1e-15 relative change of the cell moves them on the CPU, and
+# never above ITE_CAUSE_TOL
+ITE_PERTURB, ITE_CAUSE_TOL = 1e-15, 1e-8
+ITE_LINALG = {"default": None, "gram": "gram"}
+
+
+def _with_linalg(mode, fn):
+    if mode:
+        os.environ["KPBP_LINALG"] = mode
+    try:
+        return fn()
+    finally:
+        os.environ.pop("KPBP_LINALG", None)
+
+
+def ite_inputs(torch, C, F, UnitCell, robust_bp, BPConfig, hamiltonians, dev):
+    """The pin cell (D=3) and its BP messages at N=2, χ_msg=18 in complex128
+    on the card, and the AFM Heisenberg h."""
+    cell = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex128).force_zero_rotation()
+    t0 = time.perf_counter()
+    msgs, st = robust_bp(cell, None, BPConfig(trunc_dim=ITE_CHI_MSG, dtype=torch.complex128), ITE_N)
+    print(f"ITE inputs: BP on the pin cell at N={ITE_N}, chi_msg={ITE_CHI_MSG}, c128: "
+          f"{st.iterations} iterations, error {st.final_error:.3e}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cell, F._msgs_to_sites(msgs), hamiltonians.heisenberg_afm()
+
+
+def ite_update_fn(torch, F, edge, cell, sites, h, dtype, dev):
+    """One edge update as ite_update_edge runs it: the update, then its
+    energy and health read to the host in one sync."""
+    cells = tuple(t.to(dtype) for t in (cell.A, cell.B, cell.C))
+    sites = {s: tuple(x.to(dtype) for x in ss) for s, ss in sites.items()}
+    h_t = torch.as_tensor(h, dtype=dtype, device=dev)
+    upd = F.edge_update(ITE_N, cell.D, ITE_CHI, ITE_CHI_MSG, edge, ITE_ALS, True)
+
+    def run():
+        new, energy, herm, sum_eig, neg = upd(cells, sites, h_t, ITE_DT)
+        return new, torch.stack([energy, herm, sum_eig.real, neg]).tolist()
+
+    return run
+
+
+def time_ite_updates(torch, K, L, F, edge, inputs, dev):
+    """Seconds per edge update (median of ITE_REPS after one warm-up),
+    launches and shifted eigh retries (ops/linalg._eigh_gram) per update and
+    a profile of one update, for each dtype and linear-algebra path. Returns
+    the results and the launches of the run."""
+    cell, sites, h = inputs
+    out, launches = {}, {n: 0 for n in K.KERNELS}
+    for name in ("complex64", "complex128"):
+        for mode, env in ITE_LINALG.items():
+            fn = ite_update_fn(torch, F, edge, cell, sites, h, getattr(torch, name), dev)
+            _with_linalg(env, fn)
+            secs = []
+            K.reset_launch_counts()
+            L.reset_eigh_retries()
+            for _ in range(ITE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, scalars = _with_linalg(env, fn)
+                secs.append(time.perf_counter() - t0)
+            per = {n: c / ITE_REPS for n, c in K.launch_counts().items()}
+            retries = {k: c / ITE_REPS for k, c in L.eigh_retries().items()}
+            for n in launches:
+                launches[n] += K.launch_counts()[n]
+            wall, events = _with_linalg(env, lambda: profile_once(torch, dev, fn))
+            busy, device, by_name = device_summary(events, wall)
+            med = statistics.median(secs)
+            out.setdefault(name, {})[mode] = {
+                "s_per_update": med, "steps_per_s": 1 / med, "s_all": secs,
+                "launches_per_update": per, "eigh_retries_per_update": retries,
+                "energy": scalars[0],
+                "device_busy": busy, "device_s": device, "profiled_wall_s": wall,
+                "device_events": len(events), "top_device": top_device(by_name)}
+            print(f"ITE edge update {name} {mode}: median {med * 1e3:.1f} ms per update "
+                  f"({1 / med:.2f} steps/s) over {ITE_REPS} after one warm-up; launches per "
+                  f"update {json.dumps(per)}; shifted eigh retries per update (by gram size) "
+                  f"{json.dumps(retries)}; energy {scalars[0]:.10f}; profiled: "
+                  f"{wall * 1e3:.1f} ms wall, device busy {100 * busy:.1f}%, {len(events)} "
+                  f"device events; top device time: "
+                  + ", ".join(f"{n} {pct}%" for n, pct in top_device(by_name)))
+    return out, launches
+
+
+def bond_phase_move(torch, IK, E, edge, cell, sites, h) -> float:
+    """How far a phase gauge on the updated bond moves θ of the complex128
+    update on the CPU, relative to θ's largest entry. The phase leaves the
+    state as it is; the update's θ moves because the reference's
+    reduced_env applies rj⁻ᵀ where rj⁻¹ belongs (ROADMAP queue 3)."""
+    t1, t2, env, _ = E.edge_environment_sites((cell.A, cell.B, cell.C), sites, ITE_N, ITE_CHI,
+                                              ITE_CHI_MSG, edge)
+    gen = torch.Generator().manual_seed(0)
+    ph = torch.exp(2j * torch.pi * torch.rand(t1.shape[1], generator=gen, dtype=torch.float64))
+    gate = IK.gate_from_hamiltonian(torch.as_tensor(h, dtype=torch.complex128), ITE_DT)
+    thetas = []
+    for a, b in ((t1, t2), (t1 * ph[None, :, None, None, None],
+                            t2 * ph.conj()[None, :, None, None, None])):
+        n1, n2, _ = IK.apply_gate(gate, cell.D, a, b, env, als_iters=ITE_ALS)
+        th = torch.einsum("deabc,fexyz->dabcfxyz", n1, n2)
+        thetas.append(th / th.abs().max())
+    return (thetas[0] - thetas[1]).abs().max().item()
+
+
+def ite_card_vs_cpu(torch, F, E, IK, edge, inputs, dev):
+    """The complex128 update on the card and on the CPU (plain kernel
+    versions), default and gram: energy and health to ITE_TOL; θ across the
+    shared bond (relative to its largest entry) and |t'| element by element
+    to ITE_TOL, or, where the CPU update itself moves them by more than
+    ITE_TOL/100 under a ITE_PERTURB change of the cell (a measured cause),
+    to 100× that move and ITE_CAUSE_TOL."""
+    cell, sites, h = inputs
+    cpu_cell = cell.to_device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    nudged = cpu_cell._map(lambda t: t + ITE_PERTURB * t.abs().max() * torch.randn(
+        t.shape, generator=gen, dtype=t.real.dtype))
+    cpu_sites = {s: tuple(x.cpu() for x in ss) for s, ss in sites.items()}
+    _, _, _, (p1, p2) = E.edge_environment_sites((cell.A, cell.B, cell.C), sites, ITE_N,
+                                                 ITE_CHI, ITE_CHI_MSG, edge)
+    f1, f2 = int(edge.first), int(edge.second)
+
+    def gaps(a, b):
+        (a_new, a_s), (b_new, b_s) = a, b
+        theta = [torch.tensordot(n[f1].cpu(), n[f2].cpu(), dims=([1 + p1[0]], [1 + p2[0]]))
+                 for n in (a_new, b_new)]
+        return {"scalars": max(abs(x - y) for x, y in zip(a_s, b_s)),
+                "theta": ((theta[0] - theta[1]).abs().max() / theta[1].abs().max()).item(),
+                "abs_t": max((a_new[f].cpu().abs() - b_new[f].cpu().abs()).abs().max().item()
+                             for f in (f1, f2))}
+
+    out = {}
+    for mode, env in ITE_LINALG.items():
+        card, cpu, moved = (
+            _with_linalg(env, ite_update_fn(torch, F, edge, c, ss, h, torch.complex128, d))
+            for c, ss, d in ((cell, sites, dev), (cpu_cell, cpu_sites, "cpu"),
+                             (nudged, cpu_sites, "cpu")))
+        gap, cause = gaps(card, cpu), gaps(moved, cpu)
+        print(f"ITE card vs CPU c128 {mode}: energy {card[1][0]!r} vs {cpu[1][0]!r}; max gaps "
+              f"{json.dumps(gap)} (tol {ITE_TOL:g}); a {ITE_PERTURB:g} change of the cell "
+              f"moves the CPU update by {json.dumps(cause)}")
+        for key in ("theta", "abs_t"):
+            if gap[key] >= ITE_TOL and cause[key] >= ITE_TOL / 100:
+                bar = min(100 * cause[key], ITE_CAUSE_TOL)
+                if not gap[key] < bar:
+                    raise AssertionError(f"ITE card vs CPU {mode}: {key} gap {gap[key]} above "
+                                         f"{bar} (100x its measured cause {cause[key]})")
+                print(f"ITE card vs CPU c128 {mode}: {key} misses {ITE_TOL:g} by {gap[key]:.3e}; "
+                      f"cause: the update's conditioning, which moves it by {cause[key]:.3e} "
+                      f"under a {ITE_PERTURB:g} change of the cell; held to {bar:.3e}")
+            elif not gap[key] < ITE_TOL:
+                raise AssertionError(f"ITE card vs CPU {mode}: {key} gap {gap[key]}")
+        if not gap["scalars"] < ITE_TOL:
+            raise AssertionError(f"ITE card vs CPU {mode}: energy/health gap {gap['scalars']}")
+        out[mode] = {"gaps": gap, "cpu_moved_by_perturbation": cause}
+    out["bond_phase_moves_theta"] = bond_phase_move(torch, IK, E, edge, cpu_cell, cpu_sites, h)
+    print(f"ITE c128 on the CPU: a phase gauge on the updated bond moves the update's theta by "
+          f"{out['bond_phase_moves_theta']:.3e} of its largest entry (the reference's "
+          f"reduced_env is not covariant under it)")
+    return out
+
+
+def short_full_ite(torch, I, BPConfig, hamiltonians, dev):
+    """full_ite from a seeded random D=3 cell on the card, complex128: two
+    segments at dt=0.1, one mode each, BP once per segment, measured after
+    each. It must end with no ITEError and a lower energy than it began."""
+    cfg = I.ITEConfig(hamiltonian=hamiltonians.heisenberg_afm, time_steps=[0.1, 0.1],
+                      num_mode_repetitions_per_segment=1, bp_every_edge=False, seed=0)
+    t0 = time.perf_counter()
+    _, _, tr = I.full_ite(None, cfg, N=ITE_N, D=3, chi=ITE_CHI,
+                          bp_config=BPConfig(trunc_dim=ITE_CHI_MSG), device=dev)
+    wall = time.perf_counter() - t0
+    res = {"energies": tr.energies, "segment_s": [st.duration for st in tr.stats],
+           "errors": tr.error_count, "wall_s": wall}
+    print(f"ITE full_ite N=2 D=3 chi=28 c128, 2 segments at dt=0.1: energies {tr.energies}, "
+          f"seconds per segment {res['segment_s']}, {tr.error_count} ITE errors, {wall:.1f} s")
+    if tr.error_count or len(tr.energies) != 2 or not tr.energies[-1] < tr.energies[0]:
+        raise AssertionError(f"the short full_ite did not lower the energy cleanly: {res}")
+    return res
 
 
 def main() -> int:
@@ -351,10 +561,16 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kagomeperiodicbp_tpu_torch import measure
     from kagomeperiodicbp_tpu_torch.algo import contraction as C
+    from kagomeperiodicbp_tpu_torch.algo import edge_env as E
     from kagomeperiodicbp_tpu_torch.algo import fused as F
+    from kagomeperiodicbp_tpu_torch.algo import ite as I
+    from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig, robust_belief_propagation
+    from kagomeperiodicbp_tpu_torch.enums import UpdateEdge
     from kagomeperiodicbp_tpu_torch.networks.unit_cell import UnitCell
+    from kagomeperiodicbp_tpu_torch.ops import ite_kernels as IK
     from kagomeperiodicbp_tpu_torch.ops import kernels as K
     from kagomeperiodicbp_tpu_torch.ops import linalg as L
+    from kagomeperiodicbp_tpu_torch.physics import hamiltonians
 
     measure.setup_device(dev)
     with open(PIN_GOLD) as fh:
@@ -370,11 +586,13 @@ def main() -> int:
 
     # -- 4. the slice in complex128 --
     K.reset_launch_counts()
+    L.reset_eigh_retries()
     os.environ.pop("KPBP_LINALG", None)
     res = measure.production_measurement(PIN_CELL, device=dev)
     counts_default = K.launch_counts()
     print(f"c128 default linalg: launches {json.dumps(counts_default)}; "
-          f"K1 launches {counts_default['fused_tensor']}")
+          f"K1 launches {counts_default['fused_tensor']}; shifted eigh retries "
+          f"{json.dumps(L.eigh_retries())}")
     gap = report_pin(res, gold, "c128 default linalg")
 
     k_seen = {}
@@ -386,6 +604,7 @@ def main() -> int:
 
     os.environ["KPBP_LINALG"] = "gram"
     L.chol_inv = recording
+    L.reset_eigh_retries()
     try:
         res_gram = measure.production_measurement(PIN_CELL, device=dev)
     finally:
@@ -394,7 +613,8 @@ def main() -> int:
     counts = K.launch_counts()
     counts_gram = {n: counts[n] - counts_default[n] for n in counts}
     print(f"c128 KPBP_LINALG=gram: launches {json.dumps(counts_gram)}; "
-          f"K1 launches {counts_gram['fused_tensor']}; K2 sizes k:count {json.dumps(dict(sorted(k_seen.items())))}")
+          f"K1 launches {counts_gram['fused_tensor']}; K2 sizes k:count {json.dumps(dict(sorted(k_seen.items())))}; "
+          f"shifted eigh retries {json.dumps(L.eigh_retries())}")
     gap_gram = report_pin(res_gram, gold, "c128 KPBP_LINALG=gram")
     if counts_default["fused_tensor"] <= 0 or counts_gram["fused_tensor"] <= 0:
         raise AssertionError("K1 was not launched by a slice run")
@@ -458,13 +678,14 @@ def main() -> int:
 
     # -- 5. the slice in complex64 --
     K.reset_launch_counts()
+    L.reset_eigh_retries()
     res64 = measure.production_measurement(PIN_CELL, device=dev, dtype=torch.complex64)
     counts64 = K.launch_counts()
     d64 = energy_gap(res64, res)
     print(f"c64: mean_energy={res64['mean_energy']!r}; max|c64 - c128|={d64:.3e} "
           f"(tol {C64_TOL:g}); {res64['seconds']:.2f} s wall; BP {res64['bp_iterations']} "
           f"iterations, {res64['bp_attempts']} attempt(s); launches {json.dumps(counts64)}; "
-          f"K1 launches {counts64['fused_tensor']}")
+          f"K1 launches {counts64['fused_tensor']}; shifted eigh retries {json.dumps(L.eigh_retries())}")
     if not d64 < C64_TOL:
         raise AssertionError(f"c64 slice differs from c128 by {d64}")
     if counts64["fused_tensor"] <= 0:
@@ -489,16 +710,43 @@ def main() -> int:
     # -- 7. where the device time of a gram sweep goes --
     profile_gram_sweep(torch, C, F, UnitCell, dev)
 
-    # -- 8. results --
-    launches = {n: counts_default[n] + counts_gram[n] for n in counts_default}
+    # -- 8. ITE on the card --
+    edge = UpdateEdge.all_options()[0]  # (A,B)
+    inputs = ite_inputs(torch, C, F, UnitCell, robust_belief_propagation, BPConfig, hamiltonians, dev)
+    ite_updates, counts_ite = time_ite_updates(torch, K, L, F, edge, inputs, dev)
+    K.reset_launch_counts()
+    L.reset_eigh_retries()
+    ite_full = short_full_ite(torch, I, BPConfig, hamiltonians, dev)
+    ite_full["eigh_retries"] = L.eigh_retries()
+    counts_ite = {n: counts_ite[n] + c for n, c in K.launch_counts().items()}
+    print(f"ITE path: launches {json.dumps(counts_ite)}; shifted eigh retries in the short "
+          f"full_ite {json.dumps(ite_full['eigh_retries'])}")
+    for n in ("fused_tensor", "chol_inv_resident"):
+        if counts_ite[n] <= 0:
+            raise AssertionError(f"{n} was not launched on the ITE path")
+    gram128 = ite_updates["complex128"]["gram"]["launches_per_update"]
+    if gram128["fused_tensor"] < 1 or gram128["chol_inv_resident"] < 1:
+        raise AssertionError(f"a gram ITE update did not launch K1 and K2 resident: {gram128}")
+    ite_gaps = ite_card_vs_cpu(torch, F, E, IK, edge, inputs, dev)
+
+    # -- 9. results --
+    launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] for n in counts_default}
+    by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n]}
+               for n in counts_default}
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     src = {"fused_tensor": ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu",
                             "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82"),
            "chol_inv_resident": k2, "chol_inv_blocked": k2}
     kernels = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
-                "launches": launches[n], **{k: v for k, v in rows[n].items() if k != "g"}}
+                "launches": launches[n], "launches_by_path": by_path[n],
+                **{k: v for k, v in rows[n].items() if k != "g"}}
                for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked")]
     print(json.dumps({"fused_tensor_by_D": by_D}))
+    print(json.dumps({"ite": {"config": {"N": ITE_N, "D": inputs[0].D, "chi": ITE_CHI,
+                                         "chi_msg": ITE_CHI_MSG, "edge": str(edge),
+                                         "als_iters": ITE_ALS, "dt": ITE_DT},
+                              "edge_update": ite_updates, "card_vs_cpu": ite_gaps,
+                              "full_ite": ite_full, "launches": counts_ite}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
-"""Algorithmic units of BP and measurement as plain functions on tensors
-(counterpart of kagomeperiodicbp_tpu/algo/fused.py, where each unit is one
-jitted program; here they run eagerly).
+"""Algorithmic units of BP, measurement and the ITE edge update as plain
+functions on tensors (counterpart of kagomeperiodicbp_tpu/algo/fused.py,
+where each unit is one jitted program; here they run eagerly).
 """
 from __future__ import annotations
 
@@ -131,5 +131,50 @@ def edge_measure(N: int, D: int, chi: int, chi_msg: int, edge: UpdateEdge):
     def run(cells, msg_sites: MsgSites, h):
         t1, t2, env = _edge_env(cells, msg_sites, N, chi, chi_msg, edge)
         return _measure_from_env(t1, t2, env, h)
+
+    return run
+
+
+# ----------------------------- ITE update ---------------------------------
+
+
+def _unpermute(t: torch.Tensor, perm) -> torch.Tensor:
+    """Undo a virtual-leg permutation of a [d, D,D,D,D] ket."""
+    inv = [0] * 4
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return t.permute((0,) + tuple(i + 1 for i in inv))
+
+
+def _gate_als(t1, t2, env, h, dt, D: int, als_iters: int, normalize: bool):
+    """(t1', t2', energy, hermiticity defect, eigenvalue sum, negativity):
+    gate, ALS truncation to D, and the pair's new RDM in the old env (the
+    JAX package's ``_gate_als_jit``)."""
+    g = K.gate_from_hamiltonian(h, dt)
+    t1n, t2n, _ = K.apply_gate(g, D, t1, t2, env, als_iters=als_iters)
+    rho = K.rho_ij(t1n, t2n, env)
+    energy = K.expectation(rho, h).real
+    herm, sum_eig, neg = _rho_health(rho)
+    if normalize:
+        t1n = t1n / torch.linalg.vector_norm(t1n)
+        t2n = t2n / torch.linalg.vector_norm(t2n)
+    return t1n, t2n, energy, herm, sum_eig, neg
+
+
+def edge_update(N: int, D: int, chi: int, chi_msg: int, edge: UpdateEdge,
+                als_iters: int, normalize: bool):
+    """(cells, msg_sites, h, dt) → (new_cells, energy, herm, sum_eig, neg):
+    one ITE edge update — the edge environment (one K1 launch), gate and
+    ALS, and the write-back of the pair into the cell's leg order. The
+    scalars stay 0-dim device tensors."""
+
+    def run(cells, msg_sites: MsgSites, h, dt):
+        t1, t2, env, (p1, p2) = E.edge_environment_sites(cells, msg_sites, N, chi, chi_msg, edge)
+        t1n, t2n, energy, herm, sum_eig, neg = _gate_als(t1, t2, env, h, dt, D, als_iters,
+                                                         normalize)
+        new_cells = list(cells)
+        new_cells[int(edge.first)] = _unpermute(t1n, p1)
+        new_cells[int(edge.second)] = _unpermute(t2n, p2)
+        return tuple(new_cells), energy, herm, sum_eig, neg
 
     return run

@@ -3,7 +3,9 @@
 The dict of ``unit_cell_from_numpy`` is the one the JAX package's
 ``UnitCell.save`` pickles ({"A", "B", "C", "rotated"}), and a message set is
 {side_int: [site arrays]}, so a test can hand the same numpy cell and
-messages to both packages.
+messages to both packages. A saved cell or best-store file of either package
+reads with ``UnitCell.load``; a JAX ``ITETracker`` checkpoint with
+``tracker_from_jax_checkpoint``. Neither imports JAX or its package.
 """
 from __future__ import annotations
 
@@ -12,9 +14,39 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from .algo.bp import BPConfig, BPStats
+from .enums import UpdateMode
 from .lattices import BlockSide
-from .networks.unit_cell import FLAVORS, UnitCell
+from .networks.unit_cell import FLAVORS, NumpyUnpickler, UnitCell
 from .ops.mps import MPS, from_sites
+
+_JAX_PACKAGE = "kagomeperiodicbp_tpu"
+
+
+def tracker_from_jax_checkpoint(path: str, device=None):
+    """An ``ITETracker`` from a checkpoint the JAX package's
+    ``ITETracker.save`` wrote, its best cell on `device`; it does not write
+    back to that file. The pickle is read with a restricted unpickler: the
+    JAX package and JAX are not imported, and a global outside its table of
+    classes and dtypes is refused."""
+    from .algo.ite import _DTYPE_NAMES, ITESegmentStats, ITETracker  # algo.ite imports this module
+
+    # the JAX package's classes (module paths relative to its package), each
+    # read as this port's class of the same fields; jnp dtypes as torch's
+    classes = {
+        **{(f"{_JAX_PACKAGE}.{module}", cls.__name__): cls
+           for module, cls in (("algo.ite", ITESegmentStats), ("algo.bp", BPStats),
+                               ("algo.bp", BPConfig), ("enums", UpdateMode))},
+        **{("jax.numpy", n): getattr(torch, n) for n in _DTYPE_NAMES},
+    }
+    with open(path, "rb") as fh:
+        data = NumpyUnpickler(fh, extra=classes).load()
+    for seg in data.get("stats", []):
+        for st in seg.bp_stats:
+            cfg = st.final_config
+            if cfg is not None and cfg.dtype is not None and not isinstance(cfg.dtype, torch.dtype):
+                cfg.dtype = getattr(torch, np.dtype(cfg.dtype).name)
+    return ITETracker.from_checkpoint(data, None, device)
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -38,7 +70,7 @@ def to_numpy(x):
     """Tensor → ndarray; UnitCell → the save dict; MPS → list of site
     arrays; a message dict → {side_int: [site arrays]}."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu().resolve_conj().numpy()
     if isinstance(x, UnitCell):
         return {**{f: to_numpy(t) for f, t in x.items()}, "rotated": x.rotated}
     if isinstance(x, MPS):

@@ -12,11 +12,16 @@ import pytest
 import torch
 
 from kagomeperiodicbp_tpu_torch.algo import contraction as C
+from kagomeperiodicbp_tpu_torch.algo import edge_env as E
 from kagomeperiodicbp_tpu_torch.algo import fused as F
 from kagomeperiodicbp_tpu_torch.convert import unit_cell_from_numpy
+from kagomeperiodicbp_tpu_torch.enums import UpdateEdge
+from kagomeperiodicbp_tpu_torch.networks.unit_cell import UnitCell
+from kagomeperiodicbp_tpu_torch.ops import ite_kernels as IK
 from kagomeperiodicbp_tpu_torch.ops import kernels as K
 from kagomeperiodicbp_tpu_torch.ops import linalg as L
 from kagomeperiodicbp_tpu_torch.ops import mps as mpslib
+from kagomeperiodicbp_tpu_torch.physics import hamiltonians
 
 DTYPES = {"c64": torch.complex64, "c128": torch.complex128,
           "f32": torch.float32, "f64": torch.float64}
@@ -239,3 +244,108 @@ def test_bp_sweep_on_card_matches_cpu(cuda, monkeypatch, linalg):
     for side, m in m_cpu.items():
         moved = mpslib.MPS(tuple(s.cpu() for s in m_gpu[side].sites), m_gpu[side].logscale.cpu())
         assert float(mpslib.distance(m, moved)) < 1e-10
+
+
+# ------------------------------ ITE ---------------------------------------
+
+
+def _ite_inputs(dev, dtype=torch.complex128, D=2, seed=0):
+    rng = np.random.default_rng(seed)
+    data = {f: rng.standard_normal((2,) + (D,) * 4) + 1j * rng.standard_normal((2,) + (D,) * 4)
+            for f in "ABC"}
+    cell = unit_cell_from_numpy(data, device=dev, dtype=dtype)
+    msgs = C.initial_messages(2, D, 8, dtype=dtype, device=dev)
+    h = torch.as_tensor(hamiltonians.heisenberg_afm(), dtype=dtype, device=dev)
+    return (cell.A, cell.B, cell.C), F._msgs_to_sites(msgs), h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linalg", ["householder", "gram"])
+def test_edge_update_on_card_matches_cpu(cuda, monkeypatch, linalg):
+    """One ITE edge update at N=2, D=2, χ=18 in complex128, on the card and
+    on the CPU: energy and health to 1e-10, and the new pair through what
+    its bond gauge leaves fixed (θ relative to its largest entry, |t'|).
+    Under gram the update launches K1 and K2's resident variant."""
+    if linalg == "gram":
+        monkeypatch.setenv("KPBP_LINALG", "gram")
+    edge = UpdateEdge.all_options()[1]
+    out = {}
+    for dev in ("cpu", cuda):
+        cells, sites, h = _ite_inputs(dev)
+        before = K.launch_counts()
+        res = F.edge_update(2, 2, 18, 8, edge, 10, True)(cells, sites, h, 0.1)
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        out[str(dev)] = res, {n: after[n] - before[n] for n in after}
+        _, _, _, perms = E.edge_environment_sites(cells, sites, 2, 18, 8, edge)
+    (cpu, n_cpu), (gpu, n_gpu) = out["cpu"], out[str(cuda)]
+    assert sum(n_cpu.values()) == 0 and n_gpu["fused_tensor"] >= 1
+    if linalg == "gram":
+        assert n_gpu["chol_inv_resident"] >= 1
+    for name, a, b in zip(("energy", "herm", "sum_eig", "neg"), cpu[1:], gpu[1:]):
+        assert abs(complex(a) - complex(b.cpu())) < 1e-10, name
+    f1, f2 = int(edge.first), int(edge.second)
+    theta = lambda c: np.tensordot(c[f1].cpu().numpy(), c[f2].cpu().numpy(),  # noqa: E731
+                                   ([1 + perms[0][0]], [1 + perms[1][0]]))
+    th_c, th_g = theta(cpu[0]), theta(gpu[0])
+    assert np.abs(th_c - th_g).max() / np.abs(th_c).max() < 1e-10
+    for f in (f1, f2):
+        np.testing.assert_allclose(np.abs(gpu[0][f].cpu().numpy()), np.abs(cpu[0][f].numpy()),
+                                   atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_gram_edge_update_complex64_on_pin_cell(cuda, monkeypatch):
+    """The D=3 ITE update of the pin cell in complex64 under gram: its
+    environment's gram SVD meets a gram of many-fold zero eigenvalue, on
+    which cuSOLVER's complex64 eigh fails to converge unless shifted
+    (ops/linalg._eigh_gram). The update must run and stay healthy."""
+    import os
+
+    from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig, robust_belief_propagation
+
+    pin = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "pin_D3.pkl")
+    cell = UnitCell.load(pin, device=cuda).astype(torch.complex128).force_zero_rotation()
+    msgs, _ = robust_belief_propagation(cell, None, BPConfig(trunc_dim=18), 2)
+    monkeypatch.setenv("KPBP_LINALG", "gram")
+    c64 = torch.complex64
+    cells = tuple(t.to(c64) for t in (cell.A, cell.B, cell.C))
+    sites = {s: tuple(x.to(c64) for x in ss) for s, ss in F._msgs_to_sites(msgs).items()}
+    h = torch.as_tensor(hamiltonians.heisenberg_afm(), dtype=c64, device=cuda)
+    new, energy, herm, sum_eig, neg = F.edge_update(2, 3, 28, 18, UpdateEdge.all_options()[0],
+                                                    10, True)(cells, sites, h, 1e-3)
+    assert all(torch.isfinite(t).all() for t in new)
+    assert float(herm) < 1e-3 and abs(float(sum_eig) - 1) < 1e-3 and -0.5 < float(energy) < 0.5
+
+
+@pytest.mark.cuda
+def test_apply_gate_complex64_on_card(cuda):
+    """apply_gate in complex64 on the card against complex128 on the CPU:
+    the new pair's energy in the same env within the c64 energy bar, 1e-3."""
+    cells, sites, h = _ite_inputs("cpu")
+    t1, t2, env, _ = E.edge_environment_sites(cells, sites, 2, 18, 8, UpdateEdge.all_options()[0])
+    energies = []
+    for dev, dt in (("cpu", torch.complex128), (cuda, torch.complex64)):
+        args = [x.to(device=dev, dtype=dt) for x in (h, t1, t2)]
+        env_d = [e.to(device=dev, dtype=dt) for e in env]
+        n1, n2, w = IK.apply_gate(IK.gate_from_hamiltonian(args[0], 0.1), 2, args[1], args[2], env_d)
+        assert torch.isfinite(n1).all() and torch.isfinite(n2).all() and torch.isfinite(w).all()
+        energies.append(complex(IK.expectation(IK.rho_ij(n1, n2, env_d), args[0]).cpu()))
+    assert abs(energies[0] - energies[1]) < 1e-3
+
+
+@pytest.mark.cuda
+def test_unit_cell_random_on_card_repeats(cuda):
+    """UnitCell.random, add_noise and pad_to draw on the card from the
+    generator they are given: the same seed gives the same cell."""
+    def make(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        cell = UnitCell.random(2, 3, gen)
+        return cell, cell.add_noise(0.1, gen), cell.pad_to(4, generator=gen)
+
+    (a, an, ap), (b, bn, bp), (c, _, _) = make(7), make(7), make(8)
+    for f in "ABC":
+        assert a[f].is_cuda and an[f].is_cuda and ap[f].is_cuda
+        assert torch.equal(a[f], b[f]) and torch.equal(an[f], bn[f]) and torch.equal(ap[f], bp[f])
+        assert not torch.equal(a[f], c[f])
+        assert abs(float(torch.linalg.vector_norm(an[f] - a[f])) - 0.1) < 1e-12

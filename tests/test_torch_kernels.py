@@ -215,3 +215,35 @@ def test_phase_fix_treats_subnormal_diagonal_as_zero():
     assert torch.isfinite(q).all() and torch.isfinite(r2).all()
     assert r2[0, 0] == 2 and r2[1, 1] == r[1, 1]
 
+
+
+@pytest.mark.parametrize("shape", [(81, 30), (30, 81)])
+def test_svd_trunc_gram_retries_a_failed_eigh_shifted(monkeypatch, shape):
+    """Where eigh of the gram fails to converge (cuSOLVER's complex64 eigh
+    does on a gram of many-fold zero eigenvalue), the gram SVD takes eigh of
+    G + u·tr(G)·I instead, then w − u·tr(G): on a rank-9 matrix the 9 live
+    singular values and their subspace as the exact SVD gives them. The
+    retry is counted by the gram's size."""
+    m, n = shape
+    a = torch.from_numpy(_tall(m, 9, 1) @ _tall(9, n, 2))
+    want = TL.svd_trunc_gram(a, 12)
+    eigh, calls = torch.linalg.eigh, []
+
+    def first_fails(g):
+        calls.append(g)
+        if len(calls) == 1:
+            raise torch.linalg.LinAlgError("linalg.eigh: The algorithm failed to converge")
+        return eigh(g)
+
+    monkeypatch.setattr(torch.linalg, "eigh", first_fails)
+    TL.reset_eigh_retries()
+    u, s, vh = TL.svd_trunc_gram(a, 12)
+    assert len(calls) == 2 and TL.eigh_retries() == {min(m, n): 1}
+    shift = calls[1] - calls[0]
+    assert torch.count_nonzero(shift - torch.diag(torch.diagonal(shift))) == 0
+    s_ref = torch.linalg.svdvals(a)[:12]
+    np.testing.assert_allclose(s[:9].numpy(), s_ref[:9].numpy(), rtol=1e-12)
+    np.testing.assert_allclose(s[:9].numpy(), want[1][:9].numpy(), rtol=1e-12)
+    assert s[9:].abs().max() < 1e-6 * s[0]  # √(u·tr) at most
+    recon = (u[:, :9] * s[:9].to(a.dtype)) @ vh[:9]
+    np.testing.assert_allclose(recon.numpy(), a.numpy(), atol=1e-10 * float(s[0]))
