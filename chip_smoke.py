@@ -34,9 +34,26 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    bond gauge leaves fixed; a short full_ite (random D=3 cell, 2 segments
    at dt=0.1, one mode each, BP once per segment) that must lower the
    energy with no ITEError;
-9. a JSON line with K1's cases by D, one with the ITE numbers, then one
-   with every kernel's launches on the main paths, error, times and bound;
-   the card's name and power limit; then the result line.
+9. single-layer swallowing, the BP path the JAX package takes from D=6, at
+   the production χ of tools/large_d_demo.py (D=6, N=2, χ_msg=72, χ=82):
+   the double-layer and the single-layer message (every swallow through its
+   blob) agree in complex128 on the pin cell padded to D=6; the sketched
+   swallow's message at D=6, χ=24 stays within 1.4× of the direct path's
+   distance to a χ=72 oracle; single-layer messages at D=3 on the card
+   agree with the CPU port, direct and sketched at full rank; sketched at the
+   default rank, walked step by step, every step on the card agrees with
+   the CPU's on the same frontier, and where the frontiers, each run on
+   its own, part, they part first at a sketched swallow; then, in complex64
+   with the default linear algebra, BP (single-layer by the auto switch)
+   timed per sweep with its peak device memory and swallows per sweep, a
+   profile of one per-side call, one ITE edge update on its messages, and
+   one per-side call under KPBP_LINALG=gram, which must launch K2 blocked,
+   with K2 then held to its plain version at every size that call gave it,
+   in complex64;
+10. a JSON line with K1's cases by D, one with the ITE numbers, one with
+   the single-layer numbers, then one with every kernel's launches on the
+   main paths, error, times and bound; the card's name and power limit;
+   then the result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -274,9 +291,25 @@ def check_chol_inv(torch, K, dev, gen, dt, name, k):
           f"bound {b_ms * 1e3:.2f} us ({b_by})")
     if not err < K2_TOL[name]:
         raise AssertionError(f"K2 disagrees with its plain version: {err} at k={k} {name}")
-    return {"variant": variant, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+    return {"variant": variant, "max_abs_err": abs_err, "rel_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
             "shape": f"k={k}, {name}", "g": g}
+
+
+def k2_sizes(L, fn):
+    """(fn(), {k: calls}): `fn` run with every gram K2 is given counted by
+    its size k."""
+    k_seen, chol_inv = {}, L.chol_inv
+
+    def recording(g):
+        k_seen[g.shape[-1]] = k_seen.get(g.shape[-1], 0) + 1
+        return chol_inv(g)
+
+    L.chol_inv = recording
+    try:
+        return fn(), k_seen
+    finally:
+        L.chol_inv = chol_inv
 
 
 def energy_gap(a, b) -> float:
@@ -373,13 +406,18 @@ ITE_PERTURB, ITE_CAUSE_TOL = 1e-15, 1e-8
 ITE_LINALG = {"default": None, "gram": "gram"}
 
 
-def _with_linalg(mode, fn):
-    if mode:
-        os.environ["KPBP_LINALG"] = mode
+def _with_env(env, fn):
+    """fn() with the environment variables `env` set, then removed."""
+    os.environ.update(env)
     try:
         return fn()
     finally:
-        os.environ.pop("KPBP_LINALG", None)
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def _with_linalg(mode, fn):
+    return _with_env({"KPBP_LINALG": mode} if mode else {}, fn)
 
 
 def ite_inputs(torch, C, F, UnitCell, robust_bp, BPConfig, hamiltonians, dev):
@@ -411,7 +449,7 @@ def ite_update_fn(torch, F, edge, cell, sites, h, dtype, dev):
 
 def time_ite_updates(torch, K, L, F, edge, inputs, dev):
     """Seconds per edge update (median of ITE_REPS after one warm-up),
-    launches and shifted eigh retries (ops/linalg._eigh_gram) per update and
+    launches and shifted eigh retries (ops/linalg._eigh_shifted) per update and
     a profile of one update, for each dtype and linear-algebra path. Returns
     the results and the launches of the run."""
     cell, sites, h = inputs
@@ -429,7 +467,8 @@ def time_ite_updates(torch, K, L, F, edge, inputs, dev):
                 _, scalars = _with_linalg(env, fn)
                 secs.append(time.perf_counter() - t0)
             per = {n: c / ITE_REPS for n, c in K.launch_counts().items()}
-            retries = {k: c / ITE_REPS for k, c in L.eigh_retries().items()}
+            retries = {site: {n: c / ITE_REPS for n, c in by_n.items()}
+                       for site, by_n in L.eigh_retries().items()}
             for n in launches:
                 launches[n] += K.launch_counts()[n]
             wall, events = _with_linalg(env, lambda: profile_once(torch, dev, fn))
@@ -443,7 +482,7 @@ def time_ite_updates(torch, K, L, F, edge, inputs, dev):
                 "device_events": len(events), "top_device": top_device(by_name)}
             print(f"ITE edge update {name} {mode}: median {med * 1e3:.1f} ms per update "
                   f"({1 / med:.2f} steps/s) over {ITE_REPS} after one warm-up; launches per "
-                  f"update {json.dumps(per)}; shifted eigh retries per update (by gram size) "
+                  f"update {json.dumps(per)}; shifted eigh retries per update (by call site and size) "
                   f"{json.dumps(retries)}; energy {scalars[0]:.10f}; profiled: "
                   f"{wall * 1e3:.1f} ms wall, device busy {100 * busy:.1f}%, {len(events)} "
                   f"device events; top device time: "
@@ -546,6 +585,323 @@ def short_full_ite(torch, I, BPConfig, hamiltonians, dev):
     return res
 
 
+# single-layer swallowing at the production χ of tools/large_d_demo.py, the
+# D at which the JAX package switches to it: D=6, N=2, χ_msg = 2D² = 72,
+# χ = 2D²+10 = 82
+SL_D, SL_N, SL_CHI_MSG, SL_CHI = 6, 2, 72, 82
+SL_ID_TOL = 1e-9       # test_single_layer_identical_under_truncation's bar
+# the sketch's D=6 point of tools/sketch_rank_curve.py, against a χ=72
+# double-layer oracle, held as test_gram_split_message_quality_under_truncation
+SL_SKETCH_CHI, SL_ORACLE_CHI, SL_SKETCH_RATIO = 24, 72, 1.4
+SL_CARD_TOL = 1e-9     # single-layer messages, card against the CPU port, c128
+SL_SWEEPS = 2          # timed sweeps after one warm-up
+SL_NO_LIMIT = "1e15"   # KPBP_BLOB_LIMIT above every blob: the direct path only
+
+
+def _peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _fresh_peak(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def sl_message_identity(torch, C, M, UnitCell, BlockSide, dev):
+    """The pin cell padded to D=6, uniform messages, the message toward U
+    at χ_msg=72, χ=82 in complex128: double-layer against single-layer with
+    every swallow through its blob. Returns the distance and the times."""
+    c128 = torch.complex128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cell = (UnitCell.load(PIN_CELL, device=dev).astype(c128).force_zero_rotation()
+            .pad_to(SL_D, generator=gen))
+    msgs = C.initial_messages(SL_N, SL_D, SL_CHI_MSG, dtype=c128, device=dev)
+    out = {}
+    for label, fn in (("double", lambda: C.outgoing_message(
+                          cell, msgs, SL_N, SL_D, SL_CHI, SL_CHI_MSG, BlockSide.U)),
+                      ("single_direct", lambda: _with_env({"KPBP_BLOB_LIMIT": SL_NO_LIMIT},
+                          lambda: C.outgoing_message_single(
+                              cell, msgs, SL_N, SL_D, SL_CHI, SL_CHI_MSG, BlockSide.U)))):
+        _fresh_peak(torch)
+        t0 = time.perf_counter()
+        m = fn()
+        torch.cuda.synchronize()
+        out[label] = {"s": time.perf_counter() - t0, "peak_gb": _peak_gb(torch), "msg": m}
+    dist = float(M.distance(out["double"]["msg"], out["single_direct"]["msg"]))
+    res = {"distance": dist, **{k: {"s": v["s"], "peak_gb": v["peak_gb"]} for k, v in out.items()}}
+    print(f"single-layer identity D={SL_D} N={SL_N} chi_msg={SL_CHI_MSG} chi={SL_CHI} c128 (pin cell "
+          f"padded to D={SL_D}, uniform messages, toward U): distance double vs single direct "
+          f"{dist:.3e} (tol {SL_ID_TOL:g}); double {res['double']['s']:.2f} s, peak "
+          f"{res['double']['peak_gb']:.2f} GB; single direct {res['single_direct']['s']:.2f} s, "
+          f"peak {res['single_direct']['peak_gb']:.2f} GB")
+    if not dist < SL_ID_TOL:
+        raise AssertionError(f"single-layer message differs from double-layer by {dist}")
+    return res
+
+
+def sl_sketch_quality(torch, C, M, CT, UnitCell, BlockSide, dev):
+    """D=6, χ=24, a seeded random cell and random messages, c128: the
+    message toward U with every eligible swallow sketched (KPBP_BLOB_LIMIT=1)
+    against the direct single-layer one, both measured from a χ=72
+    double-layer oracle."""
+    c128 = torch.complex128
+    cell = UnitCell.random(2, SL_D, torch.Generator().manual_seed(1)).to_device(dev)
+    msgs = C.initial_messages(SL_N, SL_D, SL_SKETCH_CHI, model="random",
+                              generator=torch.Generator().manual_seed(2), dtype=c128, device=dev)
+    chi = SL_SKETCH_CHI
+    t0 = time.perf_counter()
+    oracle = C.outgoing_message(cell, msgs, SL_N, SL_D, SL_ORACLE_CHI, chi, BlockSide.U)
+    direct = C.outgoing_message_single(cell, msgs, SL_N, SL_D, chi, chi, BlockSide.U)
+    CT.reset_swallow_counts()
+    sketch = _with_env({"KPBP_BLOB_LIMIT": "1"}, lambda: C.outgoing_message_single(
+        cell, msgs, SL_N, SL_D, chi, chi, BlockSide.U))
+    swallows = CT.swallow_counts()
+    d_direct, d_sketch = (float(M.distance(m, oracle)) for m in (direct, sketch))
+    bar = max(SL_SKETCH_RATIO * d_direct, d_direct + 1e-9)
+    res = {"d_direct": d_direct, "d_sketch": d_sketch, "ratio": d_sketch / d_direct, "bar": bar,
+           "swallows": swallows, "s": time.perf_counter() - t0}
+    print(f"single-layer sketch D={SL_D} chi={chi} c128 (random cell and messages, toward U, "
+          f"oracle double-layer at chi={SL_ORACLE_CHI}): d(direct) {d_direct:.4e}, d(sketch) "
+          f"{d_sketch:.4e}, ratio {res['ratio']:.3f} (bar {bar:.4e}: {SL_SKETCH_RATIO}x or +1e-9); "
+          f"swallows {json.dumps(swallows)}; {res['s']:.2f} s")
+    if swallows["sketched"] < 1:
+        raise AssertionError("KPBP_BLOB_LIMIT=1 sketched no swallow")
+    if not d_sketch < bar:
+        raise AssertionError(f"sketched message {d_sketch} from the oracle, above {bar}")
+    return res
+
+
+def _frontier_to(CT, fr, dev):
+    """A copy of frontier `fr` on `dev`, gauge markers and scale included."""
+    out = CT.Frontier(fr.chi)
+    out.sites, out.lc, out.rc = [x.to(dev) for x in fr.sites], fr.lc, fr.rc
+    if fr.logscale is not None:
+        out.logscale, out.mantissa = fr.logscale.to(dev), fr.mantissa.to(dev)
+    return out
+
+
+def _frontier_distance(M, a, b) -> float:
+    """Distance of two frontiers' states (scale-invariant, gauge-free)."""
+    if not a.sites:
+        return 0.0
+    return float(M.distance(*(M.MPS(tuple(x.cpu() for x in f.sites), f.logscale.cpu()) for f in (a, b))))
+
+
+def sl_sketch_walk(torch, M, CT, plan, fetch_cpu, fetch_card, dev):
+    """One single-layer plan, step by step, on the CPU and on the card at
+    once. "forced": before every step the card takes a copy of the CPU's
+    frontier, so both apply the step to the same tensors, and the two states
+    after it are compared; "free": the card runs on its own frontier, as
+    outgoing_message_single does. Returns the largest forced distance, the
+    free frontiers' final distance, the number of sketched swallows and, if
+    the free frontiers part (SL_CARD_TOL or more), the step where they do,
+    its swallow, their distance before it and the largest difference of a
+    site tensor before it, relative to that site's largest entry (the same
+    state in two gauges shows a large one)."""
+    cpu, free = CT.Frontier(plan.chi), CT.Frontier(plan.chi)
+    forced_max, parted, before, sketched = 0.0, None, 0.0, 0
+    for i, step in enumerate(plan.steps):
+        site_diff = max((((a - b.cpu()).abs().max() / a.abs().max()).item()
+                         if a.shape == b.shape else float("inf")
+                         for a, b in zip(cpu.sites, free.sites)), default=0.0)
+        forced = _frontier_to(CT, cpu, dev)
+        CT.reset_swallow_counts()
+        CT.apply_step(cpu, plan, step, CT._fetch_raw(plan, step, fetch_cpu))
+        kind = next((k for k, v in CT.swallow_counts().items() if v), "first tensor")
+        sketched += kind == "sketched"
+        CT.apply_step(forced, plan, step, CT._fetch_raw(plan, step, fetch_card))
+        CT.apply_step(free, plan, step, CT._fetch_raw(plan, step, fetch_card))
+        forced_max = max(forced_max, _frontier_distance(M, cpu, forced))
+        d_free = _frontier_distance(M, cpu, free)
+        if parted is None and not d_free < SL_CARD_TOL:
+            parted = {"step": i, "swallow": kind, "distance_before": before,
+                      "site_difference_before": site_diff, "distance_after": d_free}
+        before = d_free
+    return {"forced_max": forced_max, "free_final": before, "sketched": sketched, "parted": parted}
+
+
+def sl_card_vs_cpu(torch, C, M, CT, UnitCell, BlockSide, dev):
+    """Single-layer messages at D=3, N=2, χ=12, c128, from a seeded random
+    cell and random messages, toward every side, on the card and on the
+    CPU: every swallow direct, and every eligible one sketched at full
+    retained rank, where the sketch is exact; both must agree to
+    SL_CARD_TOL. Then sketched at the default rank 2χ+32, the same factors on
+    both (drawn on the CPU). Such a sketch depends on the frontier's bond
+    gauge, which QR and SVD fix only up to rounding where a bond spectrum is
+    degenerate, so the card's and the CPU's messages may differ: each side's
+    plan is walked step by step (sl_sketch_walk), every step on the card,
+    given the CPU's frontier, is held to the CPU's result within
+    SL_CARD_TOL, and free-running frontiers that part must part first at a
+    sketched swallow."""
+    D, chi = 3, 12
+    cell = UnitCell.random(2, D, torch.Generator().manual_seed(3))
+    msgs = C.initial_messages(SL_N, D, chi, model="random", generator=torch.Generator().manual_seed(4))
+    cell_d = cell.to_device(dev)
+    msgs_d = {s: M.MPS(tuple(x.to(dev) for x in m.sites), m.logscale.to(dev)) for s, m in msgs.items()}
+
+    res = {}
+    for label, env in (("direct", {"KPBP_BLOB_LIMIT": SL_NO_LIMIT}),
+                       ("sketched, full rank", {"KPBP_BLOB_LIMIT": "1", "KPBP_SKETCH_RANK": "1000000000"})):
+        CT.reset_swallow_counts()
+        gaps = {}
+        for toward in BlockSide:
+            card, cpu = (_with_env(env, lambda: C.outgoing_message_single(c, m, SL_N, D, chi, chi, toward))
+                         for c, m in ((cell_d, msgs_d), (cell, msgs)))
+            card = M.MPS(tuple(x.cpu() for x in card.sites), card.logscale.cpu())
+            gaps[toward.name] = float(M.distance(card, cpu))
+        if label != "direct" and CT.swallow_counts()["sketched"] < 1:
+            raise AssertionError(f"the card-vs-CPU check ({label}) sketched no swallow")
+        res[label] = {"distances": gaps}
+        print(f"single-layer card vs CPU D={D} N={SL_N} chi={chi} c128, {label}: distances "
+              f"{json.dumps(gaps)} (tol {SL_CARD_TOL:g})")
+        if not max(gaps.values()) < SL_CARD_TOL:
+            raise AssertionError(f"single-layer messages ({label}) on the card differ from the CPU: {gaps}")
+
+    walks = {}
+    for toward in BlockSide:
+        plan = C.single_layer_plan(C.to_message_plan(SL_N, D, chi, chi, int(toward)))
+        fetches = [C._make_fetch(None, {int(s): tuple(m.sites) for s, m in ms.items() if int(s) != int(toward)},
+                                 kets=(c.A, c.B, c.C)) for c, ms in ((cell, msgs), (cell_d, msgs_d))]
+        walks[toward.name] = _with_env({"KPBP_BLOB_LIMIT": "1"},
+                                       lambda: sl_sketch_walk(torch, M, CT, plan, *fetches, dev))
+    res["sketched"] = walks
+    print(f"single-layer card vs CPU D={D} N={SL_N} chi={chi} c128, sketched, walked step by step "
+          f"(each step on the card from the CPU's frontier, tol {SL_CARD_TOL:g}; where the free-running "
+          f"frontiers part): " + "; ".join(
+              f"{s}: {w['sketched']} sketched, forced max {w['forced_max']:.2e}, final {w['free_final']:.2e}" + (
+                  "" if w["parted"] is None else
+                  f", part at step {w['parted']['step']} ({w['parted']['swallow']}) from "
+                  f"{w['parted']['distance_before']:.1e} with sites {w['parted']['site_difference_before']:.2f} "
+                  f"apart to {w['parted']['distance_after']:.2e}")
+              for s, w in walks.items()))
+    for s, w in walks.items():
+        if w["sketched"] < 1 or not w["forced_max"] < SL_CARD_TOL:
+            raise AssertionError(f"the sketched walk toward {s} sketched nothing, or a step on the card "
+                                 f"differs from the CPU's on the same frontier: {w}")
+        if w["parted"] is not None and w["parted"]["swallow"] != "sketched":
+            raise AssertionError(f"the sketched messages toward {s} part at a {w['parted']['swallow']} "
+                                 f"step, not at a sketched swallow: {w}")
+    return res
+
+
+def sl_production(torch, K, L, C, F, CT, BP, UnitCell, BlockSide, UpdateEdge, hamiltonians, dev):
+    """The production configuration in complex64 with the default linear
+    algebra: BP (one warm-up sweep, SL_SWEEPS timed) at D=6, N=2, χ_msg=72,
+    χ=82 from a seeded random cell and uniform messages, single-layer by the
+    auto switch; a profile of one per-side call; one ITE edge update (A,B)
+    at χ_env=82 on the messages; then one per-side call under
+    KPBP_LINALG=gram. Launch counts are zeroed before BP and read after the
+    gram call."""
+    c64 = torch.complex64
+    cfg = BP.BPConfig(trunc_dim=SL_CHI_MSG, bubble_trunc_dim=SL_CHI, max_iterations=1 + SL_SWEEPS,
+                      msg_diff_terminate=0.0, dtype=c64)
+    auto = BP.use_single_layer(cfg, SL_D)
+    print(f"single-layer production D={SL_D}: BPConfig(single_layer=None) picks "
+          f"{'single' if auto else 'double'}-layer (the auto switch turns it on from D=6)")
+    if not auto:
+        raise AssertionError("the auto switch did not pick single-layer at D=6")
+    cell = UnitCell.random(2, SL_D, torch.Generator().manual_seed(0), dtype=c64).to_device(dev)
+    kets = (cell.A, cell.B, cell.C)
+
+    # time each sweep of the BP run: wrap the sweep that belief_propagation builds
+    bp_iteration, sweeps = F.bp_iteration, []
+
+    def timed_iteration(*args, **kw):
+        run = bp_iteration(*args, **kw)
+
+        def timed(tensors, msg_sites):
+            if not kw.get("single") or any(a is not b for a, b in zip(tensors, kets)):
+                raise AssertionError("BP did not hand the sweep the raw kets, single-layer")
+            torch.cuda.synchronize()
+            CT.reset_swallow_counts()
+            t0 = time.perf_counter()
+            out = run(tensors, msg_sites)
+            float(out[1])
+            sweeps.append({"s": time.perf_counter() - t0, "swallows": CT.swallow_counts()})
+            return out
+
+        return timed
+
+    K.reset_launch_counts()
+    L.reset_eigh_retries()
+    _fresh_peak(torch)
+    F.bp_iteration = timed_iteration
+    try:
+        msgs, stats = BP.belief_propagation(cell, None, cfg, SL_N)
+    finally:
+        F.bp_iteration = bp_iteration
+    torch.cuda.synchronize()
+    bp_peak = _peak_gb(torch)
+    sites = F._msgs_to_sites(msgs)
+    finite = all(torch.isfinite(x).all().item() for ss in sites.values() for x in ss)
+    timed_s = [sw["s"] for sw in sweeps[1:]]
+    res = {"config": {"D": SL_D, "N": SL_N, "chi_msg": SL_CHI_MSG, "chi": SL_CHI, "dtype": "complex64",
+                      "single_layer": auto},
+           "sweep_s": [sw["s"] for sw in sweeps], "s_per_sweep": statistics.median(timed_s),
+           "swallows_per_sweep": sweeps[-1]["swallows"], "bp_errors": stats.error_history,
+           "bp_peak_gb": bp_peak}
+    print(f"single-layer BP D={SL_D} N={SL_N} chi_msg={SL_CHI_MSG} chi={SL_CHI} c64: sweeps "
+          f"{', '.join(f'{x:.2f}' for x in res['sweep_s'])} s (first a warm-up); "
+          f"{res['s_per_sweep']:.2f} s per sweep; peak device memory {bp_peak:.2f} GB; swallows per "
+          f"sweep {json.dumps(res['swallows_per_sweep'])}; distances {stats.error_history}")
+    if len(sweeps) != 1 + SL_SWEEPS or not finite or not all(e == e for e in stats.error_history):
+        raise AssertionError(f"the D={SL_D} BP run did not give finite messages: {res}")
+
+    side = lambda: F._one_side_update(kets, sites, SL_N, SL_D, SL_CHI, SL_CHI_MSG,  # noqa: E731
+                                      int(BlockSide.U), None, True)
+    wall, events = profile_once(torch, dev, side)
+    busy, device, by_name = device_summary(events, wall)
+    res["per_side_profile"] = {"wall_s": wall, "device_busy": busy, "device_s": device,
+                               "device_events": len(events), "top_device": top_device(by_name)}
+    print(f"single-layer per-side call, profiled: {wall:.2f} s wall, device busy {100 * busy:.1f}%, "
+          f"{device:.3f} s of device time, {len(events)} device events; top device time: "
+          + ", ".join(f"{n} {pct}%" for n, pct in top_device(by_name)))
+
+    h = torch.as_tensor(hamiltonians.heisenberg_afm(), dtype=c64, device=dev)
+    edge = UpdateEdge.all_options()[0]  # (A,B)
+    upd = F.edge_update(SL_N, SL_D, SL_CHI, SL_CHI_MSG, edge, ITE_ALS, True)
+    before = K.launch_counts()["fused_tensor"]
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    new, energy, herm, sum_eig, neg = upd(kets, sites, h, ITE_DT)
+    scalars = torch.stack([energy, herm, sum_eig.real, neg]).tolist()
+    ite_s = time.perf_counter() - t0
+    k1 = K.launch_counts()["fused_tensor"] - before
+    res["edge_update"] = {"s": ite_s, "k1_launches": k1, "energy": scalars[0], "herm": scalars[1],
+                          "sum_eig": scalars[2], "negativity": scalars[3], "peak_gb": _peak_gb(torch),
+                          "eigh_retries": L.eigh_retries()}
+    print(f"single-layer ITE edge update D={SL_D} chi_env={SL_CHI} edge {edge} c64 on the BP "
+          f"messages: {ite_s:.2f} s; K1 launches {k1}; energy {scalars[0]:.8f}, hermiticity "
+          f"{scalars[1]:.2e}, eigenvalue sum {scalars[2]:.6f}, negativity {scalars[3]:.2e}; peak "
+          f"{res['edge_update']['peak_gb']:.2f} GB; shifted eigh retries by call site "
+          f"{json.dumps(L.eigh_retries())}")
+    if k1 != 1 or not all(torch.isfinite(t).all().item() for t in new) or not abs(scalars[2] - 1) < C64_TOL:
+        raise AssertionError(f"the D={SL_D} edge update failed: {res['edge_update']}")
+
+    before = K.launch_counts()
+    t0 = time.perf_counter()
+    _, k_seen = k2_sizes(L, lambda: _with_env({"KPBP_LINALG": "gram"},
+                                              lambda: [x.sum().item() for x in side()[0][:1]]))
+    gram_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    gram = {n: counts[n] - before[n] for n in counts}
+    if gram["chol_inv_blocked"] < 1:
+        raise AssertionError("K2 blocked was not launched on the single-layer path under gram")
+    # K2 at every size that call gave it, in its dtype, against the plain version
+    gen = torch.Generator().manual_seed(2)
+    by_k = {k: check_chol_inv(torch, K, dev, gen, c64, "complex64", k) for k in sorted(k_seen)}
+    k2 = {str(k): {"calls": k_seen[k], "variant": r["variant"], "max_abs_err": r["max_abs_err"],
+                   "ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
+          for k, r in by_k.items()}
+    res["gram_per_side"] = {"s": gram_s, "launches": gram, "k2_by_size": k2}
+    print(f"single-layer per-side call under KPBP_LINALG=gram: {gram_s:.2f} s; launches {json.dumps(gram)}; "
+          f"K2 sizes k:calls {json.dumps(dict(sorted(k_seen.items())))}, each held to its plain version "
+          f"in complex64 (tol {K2_TOL['complex64']:g}): largest rel_err "
+          f"{max(r['rel_err'] for r in by_k.values()):.3e}")
+    return res, counts
+
+
 def main() -> int:
     import torch
 
@@ -564,12 +920,16 @@ def main() -> int:
     from kagomeperiodicbp_tpu_torch.algo import edge_env as E
     from kagomeperiodicbp_tpu_torch.algo import fused as F
     from kagomeperiodicbp_tpu_torch.algo import ite as I
+    from kagomeperiodicbp_tpu_torch.algo import bp as BP
     from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig, robust_belief_propagation
     from kagomeperiodicbp_tpu_torch.enums import UpdateEdge
+    from kagomeperiodicbp_tpu_torch.lattices import BlockSide
     from kagomeperiodicbp_tpu_torch.networks.unit_cell import UnitCell
+    from kagomeperiodicbp_tpu_torch.ops import contract as CT
     from kagomeperiodicbp_tpu_torch.ops import ite_kernels as IK
     from kagomeperiodicbp_tpu_torch.ops import kernels as K
     from kagomeperiodicbp_tpu_torch.ops import linalg as L
+    from kagomeperiodicbp_tpu_torch.ops import mps as M
     from kagomeperiodicbp_tpu_torch.physics import hamiltonians
 
     measure.setup_device(dev)
@@ -595,21 +955,9 @@ def main() -> int:
           f"{json.dumps(L.eigh_retries())}")
     gap = report_pin(res, gold, "c128 default linalg")
 
-    k_seen = {}
-    chol_inv = L.chol_inv
-
-    def recording(g):
-        k_seen[g.shape[-1]] = k_seen.get(g.shape[-1], 0) + 1
-        return chol_inv(g)
-
-    os.environ["KPBP_LINALG"] = "gram"
-    L.chol_inv = recording
     L.reset_eigh_retries()
-    try:
-        res_gram = measure.production_measurement(PIN_CELL, device=dev)
-    finally:
-        L.chol_inv = chol_inv
-        os.environ.pop("KPBP_LINALG", None)
+    res_gram, k_seen = k2_sizes(L, lambda: _with_env(
+        {"KPBP_LINALG": "gram"}, lambda: measure.production_measurement(PIN_CELL, device=dev)))
     counts = K.launch_counts()
     counts_gram = {n: counts[n] - counts_default[n] for n in counts}
     print(f"c128 KPBP_LINALG=gram: launches {json.dumps(counts_gram)}; "
@@ -729,9 +1077,21 @@ def main() -> int:
         raise AssertionError(f"a gram ITE update did not launch K1 and K2 resident: {gram128}")
     ite_gaps = ite_card_vs_cpu(torch, F, E, IK, edge, inputs, dev)
 
-    # -- 9. results --
-    launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] for n in counts_default}
-    by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n]}
+    # -- 9. single-layer swallowing at D=6 --
+    t_sl = time.perf_counter()
+    single = {"identity": sl_message_identity(torch, C, M, UnitCell, BlockSide, dev),
+              "sketch": sl_sketch_quality(torch, C, M, CT, UnitCell, BlockSide, dev),
+              "card_vs_cpu": sl_card_vs_cpu(torch, C, M, CT, UnitCell, BlockSide, dev)}
+    single["production"], counts_sl = sl_production(torch, K, L, C, F, CT, BP, UnitCell, BlockSide,
+                                                    UpdateEdge, hamiltonians, dev)
+    single["wall_s"] = time.perf_counter() - t_sl
+    print(f"single-layer phase: {single['wall_s']:.1f} s wall; launches {json.dumps(counts_sl)}")
+
+    # -- 10. results --
+    launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] + counts_sl[n]
+                for n in counts_default}
+    by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n],
+                   "single_layer": counts_sl[n]}
                for n in counts_default}
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     src = {"fused_tensor": ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu",
@@ -739,7 +1099,7 @@ def main() -> int:
            "chol_inv_resident": k2, "chol_inv_blocked": k2}
     kernels = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
                 "launches": launches[n], "launches_by_path": by_path[n],
-                **{k: v for k, v in rows[n].items() if k != "g"}}
+                **{k: v for k, v in rows[n].items() if k not in ("g", "rel_err")}}
                for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked")]
     print(json.dumps({"fused_tensor_by_D": by_D}))
     print(json.dumps({"ite": {"config": {"N": ITE_N, "D": inputs[0].D, "chi": ITE_CHI,
@@ -747,6 +1107,7 @@ def main() -> int:
                                          "als_iters": ITE_ALS, "dt": ITE_DT},
                               "edge_update": ite_updates, "card_vs_cpu": ite_gaps,
                               "full_ite": ite_full, "launches": counts_ite}}))
+    print(json.dumps({"single_layer": single}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

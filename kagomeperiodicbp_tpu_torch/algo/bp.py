@@ -7,9 +7,12 @@ are computed synchronously from the current ones, and the wrap is
 ``in[S.opposite()] = reverse(out[S])``. Each iteration reads one number back
 to the host: the mean message distance that decides termination.
 
-Only the per-side sweep (``fused.bp_iteration``) and the double-layer
-contraction are ported: ``batched=True`` and ``single_layer=True`` (or their
-``KPBP_BP_BATCHED=1`` / ``KPBP_SINGLE_LAYER=1`` overrides) raise.
+The sweep is the per-side one (``fused.bp_iteration``), double-layer or,
+as the JAX package chooses (``use_single_layer``), single-layer: on by
+itself from D=6, steered by ``KPBP_SINGLE_LAYER=0/1`` where the config
+leaves it to auto. The six-side batched program is not ported:
+``batched=True`` (or ``KPBP_BP_BATCHED=1``) raises where the JAX package
+would run it.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ class BPConfig:
     dtype: object = None                # torch dtype; default from the unit cell
     # None = the per-side sweep; the six-side batched program is not ported
     batched: Optional[bool] = None
-    # None = double-layer swallowing; single-layer is not ported
+    # single-layer ket swallowing (peak swallow memory χ²·d·D⁴ instead of
+    # χ²·D⁶); None = auto: on for D ≥ 6, off below
     single_layer: Optional[bool] = None
 
     @property
@@ -104,20 +108,31 @@ def _profile_of(m: MPS, chi: int, D: int) -> list:
     return [min(chi, p ** (k + 1), p ** (n - 1 - k)) for k in range(n - 1)]
 
 
-def _check_ported(config: BPConfig):
-    if config.batched or (config.batched is None and os.environ.get("KPBP_BP_BATCHED") == "1"):
+def use_single_layer(config: BPConfig, D: int) -> bool:
+    """Whether BP swallows single-layer, as the JAX package decides: the
+    config's choice, or auto (None) on from D=6 unless batched=True, where
+    KPBP_SINGLE_LAYER=0/1 overrides auto only. Raises NotImplementedError
+    where the JAX package would run the six-side batched program (an
+    explicit batched=True, or KPBP_BP_BATCHED=1 with batched left to auto,
+    on a double-layer run)."""
+    single = config.single_layer
+    if single is None:
+        single = D >= 6 and config.batched is not True
+        env_single = os.environ.get("KPBP_SINGLE_LAYER")
+        if env_single in ("0", "1"):
+            single = env_single == "1"
+    if not single and (config.batched or (config.batched is None
+                                          and os.environ.get("KPBP_BP_BATCHED") == "1")):
         raise NotImplementedError("the six-side batched BP program is not ported yet")
-    if config.single_layer or (config.single_layer is None
-                               and os.environ.get("KPBP_SINGLE_LAYER") == "1"):
-        raise NotImplementedError("single-layer BP is not ported yet")
+    return single
 
 
 def belief_propagation(cell: UnitCell, messages: Optional[MessageDict], config: BPConfig,
                        N: int) -> Tuple[MessageDict, BPStats]:
     """Iterate to the message fixed point; keep the minimum-error messages."""
-    _check_ported(config)
     t0 = time.time()
     D = cell.D
+    single = use_single_layer(config, D)
     chi_msg = config.trunc_dim
     chi = config.chi_bubble
     dtype = config.dtype or cell.A.dtype
@@ -136,15 +151,16 @@ def belief_propagation(cell: UnitCell, messages: Optional[MessageDict], config: 
         )
 
     stats = BPStats(final_config=config)
-    fused = C.fused_cells(cell)
-    step_fn = F.bp_iteration(N, D, chi, chi_msg, config.damping)
+    # single-layer swallowing consumes the raw kets, double-layer one K1 launch's fused tensors
+    tensors = (cell.A, cell.B, cell.C) if single else C.fused_cells(cell)
+    step_fn = F.bp_iteration(N, D, chi, chi_msg, config.damping, single=single)
     msg_sites = F._msgs_to_sites(messages)
     best_err, best_sites = float("inf"), msg_sites
     prev_err = float("inf")
     increases = 0
 
     for it in range(config.max_iterations):
-        msg_sites, err_t = step_fn(fused, msg_sites)
+        msg_sites, err_t = step_fn(tensors, msg_sites)
         err = float(err_t)  # the sweep's one host sync
         stats.error_history.append(err)
         if err < best_err:

@@ -4,6 +4,7 @@ Plans are host-side ``lru_cache``s; execution is eager.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -53,12 +54,15 @@ def fused_cells(cell: UnitCell) -> Tuple[torch.Tensor, ...]:
     return fused_tensors(tuple(cell[f] for f in FLAVORS))
 
 
-def _make_fetch(fused: Sequence[torch.Tensor], msgs: MsgSites):
+def _make_fetch(fused: Optional[Sequence[torch.Tensor]], msgs: MsgSites,
+                kets: Optional[Sequence[torch.Tensor]] = None):
+    """source → tensor: a fused tensor for ("lat", v), the raw ket for
+    ("ket", v) (single-layer plans), a message site for ("msg", side, k)."""
     def fetch(source):
         if source[0] == "lat":
             return fused[source[1] % len(fused)]
         if source[0] == "ket":
-            raise NotImplementedError("single-layer (ket) fetches are not ported yet")
+            return kets[source[1] % len(kets)]
         _, side, k = source
         return msgs[side][k]
 
@@ -149,4 +153,25 @@ def outgoing_message(cell_or_fused, messages: MessageDict, N: int, D: int, chi: 
     profile with unit norm."""
     plan = to_message_plan(N, D, chi, chi_msg, int(toward))
     raw = run_plan(plan, cell_or_fused, messages)
+    return message_postprocess(raw, plan, N, D, chi_msg)
+
+
+# ------------------------- single-layer mode -------------------------------
+# The same compiled plan run with Plan.single_layer=True: lattice steps fetch
+# ("ket", v) and swallow the ket and the bra layer one after the other
+# (ops/contract._swallow_ket_blob), so no fused D⁸ tensor is made.
+
+
+def single_layer_plan(plan: Plan) -> Plan:
+    """The same compiled plan, executed in single-layer mode."""
+    return dataclasses.replace(plan, single_layer=True)
+
+
+def outgoing_message_single(cell: UnitCell, messages: MessageDict, N: int, D: int, chi: int,
+                            chi_msg: int, toward: BlockSide) -> MPS:
+    """Single-layer ``outgoing_message``: the same message (same steps and
+    truncations, each swallow reordered), with no fused tensor."""
+    plan = single_layer_plan(to_message_plan(N, D, chi, chi_msg, int(toward)))
+    msg_sites = {int(s): tuple(m.sites) for s, m in messages.items() if int(s) != int(toward)}
+    raw = execute_plan(plan, _make_fetch(None, msg_sites, kets=(cell.A, cell.B, cell.C)))
     return message_postprocess(raw, plan, N, D, chi_msg)

@@ -233,13 +233,13 @@ def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
     """The edge environment of one edge class.
 
     * cells — (A, B, C) ket tensors;
-    * msg_sites — dict side-int → tuple of message site tensors.
+    * msg_sites — dict side-int → tuple of message site tensors;
+    * single_layer — run the top and bottom boundary plans single-layer
+      (large-D memory); the chain ladder still takes the three fused tensors.
 
     Returns (t1, t2, env, (perm1, perm2)) — see `edge_environment`. The three
     fused tensors come from one launch of kernel K1 on the card.
     """
-    if single_layer:
-        raise NotImplementedError("single-layer edge environments are not ported yet")
     D = cells[0].shape[1]
     block = KagomeBlock.build(N)
     geo = edge_geometry(N, D, chi, chi_msg, edge.direction())
@@ -249,9 +249,12 @@ def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
         raise AssertionError("pair must be chain-adjacent")
 
     fused = fused_tensors(cells)
-    fetch_plan = C._make_fetch(fused, msg_sites)
-    top = execute_plan(geo.top_plan, fetch_plan)
-    bot = execute_plan(geo.bot_plan, fetch_plan)
+    fetch_plan = C._make_fetch(fused, msg_sites, kets=tuple(cells))
+    top_plan, bot_plan = geo.top_plan, geo.bot_plan
+    if single_layer:
+        top_plan, bot_plan = C.single_layer_plan(top_plan), C.single_layer_plan(bot_plan)
+    top = execute_plan(top_plan, fetch_plan)
+    bot = execute_plan(bot_plan, fetch_plan)
 
     graph = C._graph_for(N, D, chi_msg, tuple(int(s) for s in BlockSide))
 

@@ -32,21 +32,29 @@ def _sites_to_msgs(sites: MsgSites) -> Dict[BlockSide, MPS]:
     return {BlockSide(s): mpslib.from_sites(ss) for s, ss in sites.items()}
 
 
-def _one_outgoing(fused, msg_sites: MsgSites, N, D, chi, chi_msg, toward: int) -> MPS:
-    """Outgoing message toward `toward`, canonical profile, unit scale."""
+def _one_outgoing(tensors, msg_sites: MsgSites, N, D, chi, chi_msg, toward: int,
+                  single: bool = False) -> MPS:
+    """Outgoing message toward `toward`, canonical profile, unit scale.
+    `tensors` are the fused tensors, or with `single` the raw kets, which the
+    plan then swallows single-layer."""
     plan = C.to_message_plan(N, D, chi, chi_msg, toward)
-    raw = execute_plan(plan, C._make_fetch(fused, msg_sites))
+    if single:
+        plan = C.single_layer_plan(plan)
+        fetch = C._make_fetch(None, msg_sites, kets=tuple(tensors))
+    else:
+        fetch = C._make_fetch(tensors, msg_sites)
+    raw = execute_plan(plan, fetch)
     return C.message_postprocess(raw, plan, N, D, chi_msg)
 
 
 # ------------------------------ BP sweep ----------------------------------
 
 
-def _one_side_update(fused, msg_sites: MsgSites, N: int, D: int, chi: int, chi_msg: int,
-                     toward: int, damping: Optional[float] = None):
+def _one_side_update(tensors, msg_sites: MsgSites, N: int, D: int, chi: int, chi_msg: int,
+                     toward: int, damping: Optional[float] = None, single: bool = False):
     """(new wrapped message sites, distance to the old one) for one side;
     with `damping`, the new message keeps that fraction of the old one."""
-    wrapped = _one_outgoing(fused, msg_sites, N, D, chi, chi_msg, toward).reverse()
+    wrapped = _one_outgoing(tensors, msg_sites, N, D, chi, chi_msg, toward, single).reverse()
     tgt = int(BlockSide(toward).opposite())
     old = MPS(tuple(msg_sites[tgt]), torch.zeros_like(wrapped.logscale))
     dist = mpslib.distance(old, wrapped)
@@ -58,17 +66,19 @@ def _one_side_update(fused, msg_sites: MsgSites, N: int, D: int, chi: int, chi_m
     return tuple(wrapped.sites), dist
 
 
-def bp_iteration(N: int, D: int, chi: int, chi_msg: int, damping: Optional[float]):
-    """(fused, msg_sites) → (new_msg_sites, mean distance): one synchronous
-    BP sweep over the six sides. The mean distance stays a 0-dim device
-    tensor; the caller decides when to read it."""
+def bp_iteration(N: int, D: int, chi: int, chi_msg: int, damping: Optional[float],
+                 single: bool = False):
+    """(tensors, msg_sites) → (new_msg_sites, mean distance): one synchronous
+    BP sweep over the six sides. `tensors` are the fused tensors, or with
+    `single` the raw kets (single-layer swallowing). The mean distance stays
+    a 0-dim device tensor; the caller decides when to read it."""
 
-    def run(fused, msg_sites: MsgSites):
+    def run(tensors, msg_sites: MsgSites):
         new: MsgSites = {}
         dists = []
         for side in BlockSide:
-            wrapped, dist = _one_side_update(fused, msg_sites, N, D, chi, chi_msg,
-                                             int(side), damping)
+            wrapped, dist = _one_side_update(tensors, msg_sites, N, D, chi, chi_msg,
+                                             int(side), damping, single)
             new[int(side.opposite())] = wrapped
             dists.append(dist)
         return new, torch.stack(dists).mean()

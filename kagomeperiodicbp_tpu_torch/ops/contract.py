@@ -1,5 +1,14 @@
 """Plan executor: runs a compiled contraction Plan on torch tensors (the
-counterpart of kagomeperiodicbp_tpu/ops/contract.py, double-layer branch).
+counterpart of kagomeperiodicbp_tpu/ops/contract.py).
+
+A plan runs double-layer (each lattice step swallows a fused D⁴-leg tensor)
+or, with ``Plan.single_layer``, single-layer: each lattice step swallows the
+raw ket against the ket halves of the frontier's fused D² legs and then the
+bra, so the D⁸ fused tensor never exists. A single-layer swallow whose blob
+would exceed ``KPBP_BLOB_LIMIT`` elements takes a sketched range finder
+instead (``_swallow_ket_gram_split``; ``KPBP_SKETCH_RANK``,
+``KPBP_SKETCH_POWER``), the three switches the JAX package reads, under the
+same names and defaults.
 
 The frontier MPS carries canonical gauge markers so each swallow's bond
 truncation only canonicalises the sites it needs: a windowed,
@@ -9,7 +18,8 @@ here reads a value back to the host.
 """
 from __future__ import annotations
 
-from typing import Callable, List
+import os
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -174,23 +184,247 @@ def _split_blob(blob: torch.Tensor, frontier: Frontier) -> List[torch.Tensor]:
     return sites
 
 
+def _fuse_ket(tk: torch.Tensor, n_out: int) -> torch.Tensor:
+    """ket [out.., d] ⊗ conj → fused [D²-out..] (the zero-in-leg step)."""
+    tt = torch.tensordot(tk, tk.conj(), dims=([tk.ndim - 1], [tk.ndim - 1]))
+    perm = []
+    for i in range(n_out):
+        perm += [i, n_out + i]
+    tt = tt.permute(perm)
+    return tt.reshape(tuple(tt.shape[2 * i] * tt.shape[2 * i + 1] for i in range(n_out)))
+
+
+def _swallow_ket_blob(tk: torch.Tensor, consumed: Sequence[torch.Tensor], n_in: int, n_out: int,
+                      D: int) -> torch.Tensor:
+    """Single-layer swallow: the ket tensor against the ket halves of the
+    consumed fused-leg frontier sites, then the bra copy against their bra
+    halves, with the physical pair traced in the same contraction.
+
+    tk: ket permuted to [in1..in_nin, out1..out_nout, d], D-dim legs;
+    consumed: frontier sites [a, D², b]. Returns the blob [Dl, D²-out..., Dr]
+    the double-layer path makes, a·b·D^(2·n_out) elements, and holds nothing
+    larger: tracing the pair after the bra contraction, as the JAX package
+    does, would hold d² times that."""
+    d = tk.shape[-1]
+    out_dims = tuple(tk.shape[n_in:-1])
+    tk_f = tk.reshape(tuple(tk.shape[:n_in]) + (-1,))  # [in..., F], F = Πout·d
+
+    s0 = consumed[0]
+    a0, _, b0 = s0.shape
+    acc = torch.tensordot(s0.reshape(a0, D, D, b0), tk_f, dims=([1], [0]))  # [a, bra1, b, in2.., F]
+    acc = torch.movedim(acc, 1, -1)                                          # [a, b, in2.., F, bra1]
+    for j in range(1, n_in):
+        sj = consumed[j]
+        aj, _, bj = sj.shape
+        # left bond ↔ the current right bond, ket leg ↔ in_j
+        acc = torch.tensordot(sj.reshape(aj, D, D, bj), acc, dims=([0, 1], [1, 2]))
+        # [bra_j, bj, a, in.., F, bras..] → [a, bj, in.., F, bras.., bra_j]
+        acc = torch.movedim(torch.movedim(acc, 0, -1), 0, 1)
+    # acc: [a, b, F, bra1..bra_nin] → [a, b, out.., d, bras..]; the bra takes
+    # the bra legs and the physical leg at once, which traces the pair
+    acc = acc.reshape(tuple(acc.shape[:2]) + out_dims + (d,) + tuple(acc.shape[3:]))
+    acc = torch.tensordot(acc, tk.conj(), dims=(list(range(2 + n_out, 3 + n_out + n_in)),
+                                                [n_in + n_out] + list(range(n_in))))
+    # [a, b, ket_out.., bra_out..] → interleave the pairs, fuse to D² legs
+    perm = [0]
+    for i in range(n_out):
+        perm += [2 + i, 2 + n_out + i]
+    perm.append(1)
+    acc = acc.permute(perm)
+    return acc.reshape((acc.shape[0],) + tuple(o * o for o in out_dims) + (acc.shape[-1],))
+
+
+def _blob_elem_limit() -> int:
+    """Element count above which a single-layer swallow takes the sketched
+    path (KPBP_BLOB_LIMIT, elements, default 3e8)."""
+    return int(float(os.environ.get("KPBP_BLOB_LIMIT", 3e8)))
+
+
+def _tail_letters(n_out: int):
+    """einsum letters of the ket (m, n, o, ...) and bra (p, q, r, ...) tail legs."""
+    return ("".join(chr(ord("m") + j) for j in range(n_out - 1)),
+            "".join(chr(ord("p") + j) for j in range(n_out - 1)))
+
+
+def _project_rows(U: torch.Tensor, S: torch.Tensor, tkn: torch.Tensor,
+                  n_out: int, a: int, D: int, b: int) -> torch.Tensor:
+    """U†·B without forming B[a, o1², tail², b] = S·tk·tk*. U: [a·D², k] row
+    basis. Returns [k, o2², .., b]."""
+    k = U.shape[1]
+    m_ket, m_bra = _tail_letters(n_out)
+    Uc = U.conj().reshape(a, D, D, k)                                  # [a, x, z, K]
+    P1 = torch.einsum("axzK,aijb->xzKijb", Uc, S)
+    P2 = torch.einsum(f"xzKijb,ix{m_ket}d->zKjb{m_ket}d", P1, tkn)
+    pairs = "".join(x + y for x, y in zip(m_ket, m_bra))
+    B2 = torch.einsum(f"zKjb{m_ket}d,jz{m_bra}d->K{pairs}b", P2, tkn.conj())
+    return B2.reshape((k,) + tuple(o * o for o in tkn.shape[2:-1]) + (b,))
+
+
+def _gauss(generator: torch.Generator, dim: int, s_dim: int, dtype: torch.dtype) -> torch.Tensor:
+    """[dim, s_dim] standard normal sketch factor on the CPU; complex types
+    take independent real and imaginary parts, as the JAX package does."""
+    rdt = _real_dtype(dtype)
+    if dtype.is_complex:
+        g = torch.randn((dim, s_dim, 2), generator=generator, dtype=rdt)
+        return torch.complex(g[..., 0], g[..., 1])
+    return torch.randn((dim, s_dim), generator=generator, dtype=rdt).to(dtype)
+
+
+def sketch_factors(n_out: int, D: int, b: int, s_dim: int, dtype: torch.dtype, device=None):
+    """The Khatri-Rao sketch factors of ``_swallow_ket_gram_split``:
+    (ket factors [D, s] × (n_out−1), bra factors [D, s] × (n_out−1), bond
+    factor [b, s]). Drawn from a CPU generator seeded 0 and then moved, so the
+    sketch is the same in every sweep and on every device; the numbers are
+    torch's, not jax.random's."""
+    gen = torch.Generator().manual_seed(0)
+    om_ket = [_gauss(gen, D, s_dim, dtype) for _ in range(n_out - 1)]
+    om_bra = [_gauss(gen, D, s_dim, dtype) for _ in range(n_out - 1)]
+    om_b = _gauss(gen, b, s_dim, dtype)
+    return ([x.to(device) for x in om_ket], [x.to(device) for x in om_bra], om_b.to(device))
+
+
+def _sketch_rank(rows: int, chi: int) -> int:
+    """Retained sketch rank: KPBP_SKETCH_RANK, or 2χ+32 when it is 0/unset,
+    at most the rows."""
+    return int(min(rows, int(os.environ.get("KPBP_SKETCH_RANK", 0)) or (2 * chi + 32)))
+
+
+def _khatri_rao(t: torch.Tensor, oms: Sequence[torch.Tensor]) -> torch.Tensor:
+    """t [i, x, m1..mk, d] with each tail leg m_j contracted against oms[j]
+    [m_j, s], all sharing s: [i, x, d, s]. One pair at a time, so no
+    intermediate grows past t·s."""
+    x = torch.tensordot(t, oms[0], dims=([2], [0]))      # [i, x, m2.., d, s]
+    for om in oms[1:]:
+        x = torch.einsum("ixm...s,ms->ix...s", x, om)
+    return x
+
+
+def _swallow_ket_gram_split(tk: torch.Tensor, consumed: Sequence[torch.Tensor], n_out: int,
+                            D: int, chi: int, fr: Frontier) -> List[torch.Tensor]:
+    """Memory-lean single-layer swallow for a one-in-leg node whose blob
+    would be huge (n_out=3 at D=6, χ=82: a·b·d²·D⁶ ≈ 1.3·10⁹ elements). The
+    blob B[a, o1², o2².., b] is never formed; a randomized range finder over
+    its first cut (rows a, o1_ket, o1_bra) is built from small contractions
+    of the factors (frontier site S, ket, bra):
+
+      1. Y = B·Ω with a Khatri-Rao Ω (one Gaussian factor per remaining leg,
+         s = min(rows, 2χ+32) columns);
+      2. KPBP_SKETCH_POWER (default 1) power iterations Y ← B·(B†·Q);
+      3. Q = QR(Y), a left-orthonormal row basis of ~2χ columns, so the
+         windowed truncation afterwards still picks the best χ within it;
+      4. B2 = Q†·B, [s, o2².., b]: the first site is Q as [a, o1², s], the
+         rest the exact QR chain on B2.
+
+    At s = rows the sketch spans the row space and the result is exact.
+    The factors come from ``sketch_factors``, which a parity test replaces
+    with the JAX package's draw. Only n_in=1 (Kagome nodes have 4 legs, so
+    n_out ≥ 2 means one in-leg)."""
+    out_d = tuple(tk.shape[1:-1])
+    if len(out_d) != n_out:
+        raise ValueError(f"ket has {len(out_d)} out legs, the step {n_out}")
+    # the einsum letters m.. (ket) and p.. (bra) collide from n_out = 5;
+    # Kagome and square single-layer swallows have n_out ≤ 3
+    if n_out > 4:
+        raise ValueError(f"the sketched swallow supports n_out <= 4, got {n_out}")
+    s0 = consumed[0]
+    a, _, b = s0.shape
+    S = fr._absorb_norm(s0.reshape(a, D, D, b))          # [a, ik, ib, b]
+    ntk = torch.clamp(torch.linalg.vector_norm(tk), min=1e-300)
+    tkn = tk / ntk
+    fr.logscale = fr.logscale + 2 * torch.log(ntk)       # tk enters twice (ket and bra)
+
+    rows = a * D * D
+    s_dim = _sketch_rank(rows, chi)
+    n_power = int(os.environ.get("KPBP_SKETCH_POWER", 1))
+    om_ket, om_bra, om_b = sketch_factors(n_out, D, b, s_dim, tk.dtype, tk.device)
+    m_ket, m_bra = _tail_letters(n_out)
+
+    # Y = B·Ω, pairwise contractions in a fixed order
+    T1 = _khatri_rao(tkn, om_ket)                        # [i, x, d, s]
+    T2 = _khatri_rao(tkn.conj(), om_bra)                 # [j, z, d, s]
+    S1 = torch.tensordot(S, om_b, dims=([3], [0]))       # [a, i, j, s]
+    W = torch.einsum("aijs,ixds->ajxds", S1, T1)
+    Y = torch.einsum("ajxds,jzds->axzs", W, T2).reshape(rows, s_dim)
+    del T1, T2, S1, W
+
+    Q = qr_stable(Y)[0]
+    pairs = "".join(x + y for x, y in zip(m_ket, m_bra))
+    for _ in range(n_power):
+        # B·(B†·Q): Z = Q†·B [s, o2².., b], its tail legs unfused into (ket, bra)
+        Z = _project_rows(Q, S, tkn, n_out, a, D, b)
+        Zt = Z.conj().reshape((Q.shape[1],) + (D,) * (2 * (n_out - 1)) + (b,))
+        Z2 = torch.einsum(f"jz{m_bra}d,S{pairs}b->jzd{m_ket}bS", tkn.conj(), Zt)
+        Z3 = torch.einsum(f"ix{m_ket}d,jzd{m_ket}bS->jzdixbS", tkn, Z2)
+        BZ = torch.einsum("aijb,jzdixbS->axzS", S, Z3)
+        del Z, Zt, Z2, Z3
+        Q = qr_stable(BZ.reshape(rows, -1))[0]
+
+    B2 = fr._absorb_norm(_project_rows(Q, S, tkn, n_out, a, D, b))
+    return [Q.reshape(a, D * D, Q.shape[1])] + _split_blob(B2, fr)
+
+
+# swallows since the last ``reset_swallow_counts``, by kind: a message site,
+# a fused (double-layer) node, a single-layer node through the blob
+# ("direct") or the sketch ("sketched"); host-side ints, no device read
+_SWALLOWS = {"message": 0, "fused": 0, "direct": 0, "sketched": 0}
+
+
+def reset_swallow_counts() -> None:
+    for k in _SWALLOWS:
+        _SWALLOWS[k] = 0
+
+
+def swallow_counts() -> dict:
+    return dict(_SWALLOWS)
+
+
+def _truncate_after(fr: Frontier, plan: Plan, s: int, n_out: int) -> None:
+    """The plan's truncation policy after a swallow wrote sites [s, s+n_out):
+    the window it touched to χ, or, in two-tier lazy mode (Plan.chi_lazy),
+    the whole frontier once any bond exceeds chi_lazy."""
+    if plan.chi_lazy is not None:
+        if fr.max_bond_in(0, len(fr.sites)) > plan.chi_lazy:
+            fr.truncate_window(0, len(fr.sites))
+    elif fr.max_bond_in(s, s + n_out) > plan.chi:
+        fr.truncate_window(s, s + n_out)
+
+
 def apply_step(fr: Frontier, plan: Plan, step: Step, raw: torch.Tensor, dtype=None) -> None:
     """One plan step applied to the frontier, in place: permute the fetched
-    double-layer tensor, swallow it, split the blob back into MPS sites and
-    truncate the window it touched."""
-    if plan.single_layer:
-        raise NotImplementedError("single-layer swallowing is not ported yet")
-    if plan.chi_lazy is not None:
-        raise NotImplementedError("two-tier lazy truncation (Plan.chi_lazy) is not ported yet")
+    tensor, swallow it (double- or single-layer), split the blob back into
+    MPS sites and truncate as the plan says."""
+    single = plan.single_layer and step.source[0] == "lat"
     t = raw if dtype is None else raw.to(dtype)
     fr._init_scale(t)
-    t = t.permute(step.perm)
+    if single:
+        # the ket [d, v0..v3]: its virtual legs permuted as the plan says, d last
+        t = t.permute(tuple(p + 1 for p in step.perm) + (0,))
+    else:
+        t = t.permute(step.perm)
 
     s, n_in, n_out = step.start, step.n_in, step.n_out
     if n_in == 0:
         if fr.sites:
             raise RuntimeError("zero-in-leg step on a non-empty frontier")
+        if single:  # no frontier contact: the fused node tensor is the blob
+            t = _fuse_ket(t, n_out)
         blob = t.reshape((1,) + tuple(t.shape) + (1,))
+    elif single:
+        D = t.shape[0]
+        consumed = fr.sites[s : s + n_in]
+        if n_in == 1 and n_out >= 2:
+            a, b, d = consumed[0].shape[0], consumed[-1].shape[2], t.shape[-1]
+            if a * b * d * d * D ** (2 * n_out) > _blob_elem_limit():
+                # in lazy mode bonds grow to chi_lazy before the windowed SVD:
+                # the sketch is sized for that
+                new_sites = _swallow_ket_gram_split(t, consumed, n_out, D,
+                                                    plan.chi_lazy or plan.chi, fr)
+                _SWALLOWS["sketched"] += 1
+                fr.replace(s, n_in, new_sites)
+                _truncate_after(fr, plan, s, n_out)
+                return
+        blob = _swallow_ket_blob(t, consumed, n_in, n_out, D)
+        _SWALLOWS["direct"] += 1
     else:
         consumed = fr.sites[s : s + n_in]
         run = torch.tensordot(t, consumed[0], dims=([0], [1]))
@@ -198,6 +432,7 @@ def apply_step(fr: Frontier, plan: Plan, step: Step, raw: torch.Tensor, dtype=No
         for j in range(1, n_in):
             run = torch.tensordot(run, consumed[j], dims=([1, run.ndim - 1], [1, 0]))
         blob = run  # [Dl, out..., Dr]
+        _SWALLOWS["fused" if step.source[0] == "lat" else "message"] += 1
 
     blob = fr._absorb_norm(blob)
 
@@ -220,12 +455,14 @@ def apply_step(fr: Frontier, plan: Plan, step: Step, raw: torch.Tensor, dtype=No
             fr.mantissa = fr.mantissa * mat[0, 0]
     else:
         fr.replace(s, n_in, _split_blob(blob, fr))
-        if fr.max_bond_in(s, s + n_out) > plan.chi:
-            fr.truncate_window(s, s + n_out)
+        _truncate_after(fr, plan, s, n_out)
 
 
 def _fetch_raw(plan: Plan, step: Step, fetch: Callable[[Source], torch.Tensor]):
-    """The tensor a step consumes, before permutation."""
+    """The tensor a step consumes, before permutation: the ket ("ket", v)
+    where a single-layer plan swallows a lattice node."""
+    if plan.single_layer and step.source[0] == "lat":
+        return fetch(("ket", step.source[1]))
     return fetch(step.source)
 
 

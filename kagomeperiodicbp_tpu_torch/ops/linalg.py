@@ -118,9 +118,9 @@ def rsvd_trunc(a: torch.Tensor, k: int, oversample: int = RSVD_OVERSAMPLE,
     return u[:, :k], s[:k], vh[:k, :]
 
 
-# Calls of _eigh_gram whose eigh failed and was retried shifted, by the
-# gram's size; eigh_retries() reads them and reset_eigh_retries() zeroes them,
-# as ops/kernels counts its launches.
+# eigh calls that failed and were retried shifted, by call site and matrix
+# size; eigh_retries() reads them and reset_eigh_retries() zeroes them, as
+# ops/kernels counts its launches.
 _EIGH_RETRIES: dict = {}
 
 
@@ -129,22 +129,25 @@ def reset_eigh_retries() -> None:
 
 
 def eigh_retries() -> dict:
-    return dict(_EIGH_RETRIES)
+    """{call site: {matrix size: retries}}."""
+    return {site: dict(by_n) for site, by_n in _EIGH_RETRIES.items()}
 
 
-def _eigh_gram(g: torch.Tensor):
-    """eigh of a Hermitian PSD gram. Where it fails to converge, eigh of
+def _eigh_shifted(g: torch.Tensor, site: str):
+    """eigh of a Hermitian PSD matrix. Where it fails to converge, eigh of
     G + σI with σ = u·tr(G) (the shift of ``_cholqr_once``), then w − σ: the
     same eigenvectors. cuSOLVER's complex64 eigh fails on a gram whose zero
     eigenvalue is many-fold (the D=3 ITE environment's first truncation
     under gram) and converges on the shifted one. Only the failing case is
-    shifted, and counted in ``eigh_retries``: shifting every call moves the
-    complex128 gram pin's energies by ~2e-9 (chip_smoke.py on an H100)."""
+    shifted, and counted under `site` in ``eigh_retries``: shifting every call
+    moves the complex128 gram pin's energies by ~2e-9 (chip_smoke.py on an
+    H100)."""
     try:
         return torch.linalg.eigh(g)
     except torch.linalg.LinAlgError:
         n = g.shape[-1]
-        _EIGH_RETRIES[n] = _EIGH_RETRIES.get(n, 0) + 1
+        by_n = _EIGH_RETRIES.setdefault(site, {})
+        by_n[n] = by_n.get(n, 0) + 1
         u = torch.finfo(_real_dtype(g.dtype)).eps
         sigma = u * torch.clamp(torch.diagonal(g).real.sum(), min=1e-300)
         w, v = torch.linalg.eigh(g + sigma * torch.eye(n, dtype=g.dtype, device=g.device))
@@ -161,13 +164,13 @@ def svd_trunc_gram(a: torch.Tensor, k: int):
                            torch.zeros_like(s))
 
     if m <= n:
-        w, u = _eigh_gram(a @ a.mH)               # ascending
+        w, u = _eigh_shifted(a @ a.mH, "svd_trunc_gram")               # ascending
         w = w.flip(0)[:k]
         u_k = u.flip(1)[:, :k]
         s = torch.sqrt(torch.clamp(w, min=0.0))
         vh = inv_of(s).to(a.dtype)[:, None] * (u_k.mH @ a)
         return u_k, s, vh
-    w, v = _eigh_gram(a.mH @ a)
+    w, v = _eigh_shifted(a.mH @ a, "svd_trunc_gram")
     w = w.flip(0)[:k]
     v_k = v.flip(1)[:, :k]
     s = torch.sqrt(torch.clamp(w, min=0.0))
@@ -193,9 +196,10 @@ def robust_solve(n_mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Minimal-norm least-squares solve of the Hermitian-PSD system N x = b
     by spectral projection: the components of b along eigendirections below
     rtol·w_max are dropped, not amplified, so a rank-deficient ALS system
-    (a zero-padded bond) keeps the update inside the supported subspace."""
+    (a zero-padded bond) keeps the update inside the supported subspace.
+    A failing eigh is retried shifted (``_eigh_shifted``)."""
     n_mat = 0.5 * (n_mat + n_mat.mH)
-    w, u = torch.linalg.eigh(n_mat)
+    w, u = _eigh_shifted(n_mat, "robust_solve")
     wmax = torch.clamp(w[-1], min=1e-300)
     rtol = max(rtol_for(n_mat.dtype), 1e-14)
     one = torch.ones_like(w)
@@ -208,11 +212,12 @@ def robust_solve(n_mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def eigh_psd_sqrt(n_mat: torch.Tensor, rtol: Optional[float] = None):
     """Hermitise, clip the eigenvalues at or below rtol·w_max to zero and
     return (X, w) with N ≈ X·X†; X keeps the full width (clipped columns are
-    zero), w are the raw eigenvalues, ascending."""
+    zero), w are the raw eigenvalues, ascending. A failing eigh is retried
+    shifted (``_eigh_shifted``)."""
     if rtol is None:
         rtol = min(rtol_for(n_mat.dtype), 1e-12) if rtol_for(n_mat.dtype) < 1e-7 else 1e-6
     n_mat = 0.5 * (n_mat + n_mat.mH)
-    w, u = torch.linalg.eigh(n_mat)
+    w, u = _eigh_shifted(n_mat, "eigh_psd_sqrt")
     wmax = torch.clamp(w[-1], min=0.0)
     wpos = torch.where(w > rtol * wmax, w, torch.zeros_like(w))
     return u * torch.sqrt(wpos).to(u.dtype)[None, :], w

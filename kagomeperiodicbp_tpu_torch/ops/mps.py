@@ -97,6 +97,79 @@ def compress(mps: MPS, chi: int) -> MPS:
     return MPS(tuple(sites), m.logscale + torch.log(nrm))
 
 
+def upd_left(cl: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """CL'[a2, g2] = Σ CL[a,g] B[a,p,a2] conj(Q[g,p,g2])."""
+    x = torch.tensordot(cl, b, dims=([0], [0]))                      # [g, p, a2]
+    return torch.tensordot(x, q.conj(), dims=([0, 1], [0, 1]))       # [a2, g2]
+
+
+def upd_right(cr: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """CR'[a, g] = Σ B[a,p,a2] CR[a2,g2] conj(Q[g,p,g2])."""
+    x = torch.tensordot(b, cr, dims=([2], [0]))                      # [a, p, g2]
+    return torch.tensordot(x, q.conj(), dims=([1, 2], [1, 2]))       # [a, g]
+
+
+def right_canon(site: torch.Tensor):
+    """(Q, Rᵀ) with site = Rᵀ·Q and Q right-orthonormal [k, p, dr]; the
+    transposes are plain, as in the JAX package."""
+    dl, p, dr = site.shape
+    q, r = qr_stable(site.reshape(dl, p * dr).transpose(-2, -1))     # site = rᵀ·qᵀ
+    return q.transpose(-2, -1).reshape(q.shape[1], p, dr), r.transpose(-2, -1)
+
+
+def compress_iter(mps: MPS, chi: int, sweeps: int = 2) -> MPS:
+    """SVD-free iterative compression (the reference's ``reduceDiter``):
+    alternating sweeps that project each site of a guess MPS (bonds clipped
+    to ≤ chi) onto the current left/right isometry bases of the original —
+    matmul ladders and thin QRs, no SVD. Output is right-canonical with unit
+    norm, as from ``compress``."""
+    n = mps.n
+    B = list(mps.sites)
+    if n == 1 or max(s.shape[2] for s in B[:-1]) <= chi:
+        return compress(mps, chi)  # nothing to truncate: the exact path
+
+    tb = [min(B[i].shape[2], chi) for i in range(n - 1)]
+    # initial guess: the leading indices of every bond
+    A = [s[: (1 if i == 0 else tb[i - 1]), :, : (1 if i == n - 1 else tb[i])]
+         for i, s in enumerate(B)]
+
+    def eye(k):
+        return torch.eye(k, dtype=B[0].dtype, device=B[0].device)
+
+    # right-canonicalise the guess, building the right environments
+    R_env = [None] * (n + 1)
+    R_env[n] = eye(B[-1].shape[2])
+    for i in range(n - 1, 0, -1):
+        A[i], r = right_canon(A[i])
+        A[i - 1] = torch.tensordot(A[i - 1], r, dims=([2], [0]))
+        R_env[i] = upd_right(R_env[i + 1], B[i], A[i])
+
+    for _ in range(sweeps):
+        cl = eye(B[0].shape[0])
+        L_env = [None] * n
+        for i in range(n - 1):                                       # L → R
+            x = torch.tensordot(B[i], R_env[i + 1], dims=([2], [0]))   # [a, p, g2]
+            x = torch.tensordot(cl, x, dims=([0], [0]))                # [g, p, g2]
+            dl, p, dr = x.shape
+            q, r = qr_stable(x.reshape(dl * p, dr))
+            A[i] = q.reshape(dl, p, q.shape[1])
+            A[i + 1] = torch.tensordot(r, A[i + 1], dims=([1], [0]))
+            cl = upd_left(cl, B[i], A[i])
+            L_env[i] = cl
+        cr = eye(B[-1].shape[2])
+        for i in range(n - 1, 0, -1):                                # R → L
+            x = torch.tensordot(B[i], cr, dims=([2], [0]))
+            x = torch.tensordot(L_env[i - 1], x, dims=([0], [0]))
+            A[i], r = right_canon(x)
+            A[i - 1] = torch.tensordot(A[i - 1], r, dims=([2], [0]))
+            cr = upd_right(cr, B[i], A[i])
+            R_env[i] = cr
+
+    nrm = _clamped_norm(A[0])
+    A[0] = A[0] / nrm
+    return MPS(tuple(A), mps.logscale + torch.log(nrm))
+
+
 def inner(a: MPS, b: MPS) -> Tuple[torch.Tensor, torch.Tensor]:
     """⟨a|b*⟩ → (mantissa, log): value = mantissa·exp(log), both logscales
     included; the transfer ladder is rescaled at every step."""

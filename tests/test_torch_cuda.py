@@ -16,7 +16,9 @@ from kagomeperiodicbp_tpu_torch.algo import edge_env as E
 from kagomeperiodicbp_tpu_torch.algo import fused as F
 from kagomeperiodicbp_tpu_torch.convert import unit_cell_from_numpy
 from kagomeperiodicbp_tpu_torch.enums import UpdateEdge
+from kagomeperiodicbp_tpu_torch.lattices import BlockSide
 from kagomeperiodicbp_tpu_torch.networks.unit_cell import UnitCell
+from kagomeperiodicbp_tpu_torch.ops import contract as CT
 from kagomeperiodicbp_tpu_torch.ops import ite_kernels as IK
 from kagomeperiodicbp_tpu_torch.ops import kernels as K
 from kagomeperiodicbp_tpu_torch.ops import linalg as L
@@ -299,7 +301,7 @@ def test_gram_edge_update_complex64_on_pin_cell(cuda, monkeypatch):
     """The D=3 ITE update of the pin cell in complex64 under gram: its
     environment's gram SVD meets a gram of many-fold zero eigenvalue, on
     which cuSOLVER's complex64 eigh fails to converge unless shifted
-    (ops/linalg._eigh_gram). The update must run and stay healthy."""
+    (ops/linalg._eigh_shifted). The update must run and stay healthy."""
     import os
 
     from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig, robust_belief_propagation
@@ -349,3 +351,57 @@ def test_unit_cell_random_on_card_repeats(cuda):
         assert torch.equal(a[f], b[f]) and torch.equal(an[f], bn[f]) and torch.equal(ap[f], bp[f])
         assert not torch.equal(a[f], c[f])
         assert abs(float(torch.linalg.vector_norm(an[f] - a[f])) - 0.1) < 1e-12
+
+
+# ------------------------- single-layer swallowing ---------------------------
+
+
+def _dense_sites(sites, logscale):
+    out = sites[0]
+    for x in sites[1:]:
+        out = torch.tensordot(out, x, dims=([out.ndim - 1], [0]))
+    return (out * torch.exp(logscale)).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi", [3, 10**6])
+def test_sketched_swallow_on_card_matches_cpu(cuda, chi):
+    """One sketched swallow (n_out=3, D=3) on the card against the CPU, the
+    same factors on both: below full rank (χ=3, s = 2χ+32 = 38 of 63 rows)
+    and at full rank; the frontier it writes, as a dense tensor, to 1e-10 of
+    its largest entry."""
+    D, a, b = 3, 7, 6
+    tk = _randn((D, D, D, D, 2), torch.complex128, seed=1)
+    site = _randn((a, D * D, b), torch.complex128, seed=2)
+    dense = []
+    for dev in ("cpu", cuda):
+        fr = CT.Frontier(chi=chi)
+        fr._init_scale(tk.to(dev))
+        sites = CT._swallow_ket_gram_split(tk.to(dev), [site.to(dev)], 3, D, chi, fr)
+        assert sites[0].shape[2] == min(a * D * D, 2 * chi + 32)
+        dense.append(_dense_sites(sites, fr.logscale))
+    np.testing.assert_allclose(dense[1].numpy(), dense[0].numpy(),
+                               atol=1e-10 * float(dense[0].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("toward", [BlockSide.U, BlockSide.DR])
+def test_single_layer_message_on_card(cuda, monkeypatch, toward):
+    """The single-layer message at D=3, χ=12 on the card: the double-layer
+    one on the card, and the single-layer one on the CPU, direct and with
+    every eligible swallow sketched at full rank, to 1e-9."""
+    cell = UnitCell.random(2, 3, torch.Generator().manual_seed(3))
+    msgs = C.initial_messages(2, 3, 12, model="random", generator=torch.Generator().manual_seed(4))
+    cell_d = cell.to_device(cuda)
+    msgs_d = {s: mpslib.MPS(tuple(x.to(cuda) for x in m.sites), m.logscale.to(cuda))
+              for s, m in msgs.items()}
+    single = C.outgoing_message_single(cell_d, msgs_d, 2, 3, 12, 12, toward)
+    double = C.outgoing_message(cell_d, msgs_d, 2, 3, 12, 12, toward)
+    assert float(mpslib.distance(single, double)) < 1e-9
+    for env in ({}, {"KPBP_BLOB_LIMIT": "1", "KPBP_SKETCH_RANK": "1000000000"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        card = C.outgoing_message_single(cell_d, msgs_d, 2, 3, 12, 12, toward)
+        cpu = C.outgoing_message_single(cell, msgs, 2, 3, 12, 12, toward)
+        card = mpslib.MPS(tuple(x.cpu() for x in card.sites), card.logscale.cpu())
+        assert float(mpslib.distance(card, cpu)) < 1e-9

@@ -223,7 +223,7 @@ def test_svd_trunc_gram_retries_a_failed_eigh_shifted(monkeypatch, shape):
     does on a gram of many-fold zero eigenvalue), the gram SVD takes eigh of
     G + u·tr(G)·I instead, then w − u·tr(G): on a rank-9 matrix the 9 live
     singular values and their subspace as the exact SVD gives them. The
-    retry is counted by the gram's size."""
+    retry is counted under its call site, by the gram's size."""
     m, n = shape
     a = torch.from_numpy(_tall(m, 9, 1) @ _tall(9, n, 2))
     want = TL.svd_trunc_gram(a, 12)
@@ -238,7 +238,7 @@ def test_svd_trunc_gram_retries_a_failed_eigh_shifted(monkeypatch, shape):
     monkeypatch.setattr(torch.linalg, "eigh", first_fails)
     TL.reset_eigh_retries()
     u, s, vh = TL.svd_trunc_gram(a, 12)
-    assert len(calls) == 2 and TL.eigh_retries() == {min(m, n): 1}
+    assert len(calls) == 2 and TL.eigh_retries() == {"svd_trunc_gram": {min(m, n): 1}}
     shift = calls[1] - calls[0]
     assert torch.count_nonzero(shift - torch.diag(torch.diagonal(shift))) == 0
     s_ref = torch.linalg.svdvals(a)[:12]
@@ -247,3 +247,43 @@ def test_svd_trunc_gram_retries_a_failed_eigh_shifted(monkeypatch, shape):
     assert s[9:].abs().max() < 1e-6 * s[0]  # √(u·tr) at most
     recon = (u[:, :9] * s[:9].to(a.dtype)) @ vh[:9]
     np.testing.assert_allclose(recon.numpy(), a.numpy(), atol=1e-10 * float(s[0]))
+
+
+@pytest.mark.parametrize("site", ["robust_solve", "eigh_psd_sqrt"])
+def test_ite_solves_retry_a_failed_eigh_shifted(monkeypatch, site):
+    """robust_solve and eigh_psd_sqrt, like the gram SVD, take eigh of
+    N + u·tr(N)·I where eigh of N fails to converge (cuSOLVER's complex64
+    eigh on the larger ALS grams of a D=6 update), then w − u·tr(N): the
+    solution of the call that did not fail, to round-off. The retry is
+    counted under the function's name, by the matrix size."""
+    b = _tall(30, 9, 4)
+    n_mat = torch.from_numpy(b @ b.conj().T)  # PSD of rank 9: a rank-deficient ALS system
+    rhs = torch.from_numpy(_tall(30, 2, 5))
+    fn = {"robust_solve": lambda: TL.robust_solve(n_mat, rhs),
+          "eigh_psd_sqrt": lambda: TL.eigh_psd_sqrt(n_mat)}[site]
+    want = fn()
+    eigh, calls = torch.linalg.eigh, []
+
+    def first_fails(g):
+        calls.append(g)
+        if len(calls) == 1:
+            raise torch.linalg.LinAlgError("linalg.eigh: The algorithm failed to converge")
+        return eigh(g)
+
+    monkeypatch.setattr(torch.linalg, "eigh", first_fails)
+    TL.reset_eigh_retries()
+    got = fn()
+    assert len(calls) == 2 and TL.eigh_retries() == {site: {30: 1}}
+    shift = calls[1] - calls[0]
+    sigma = torch.finfo(torch.float64).eps * torch.diagonal(calls[0]).real.sum()
+    assert torch.count_nonzero(shift - torch.diag(torch.diagonal(shift))) == 0
+    # u·tr(N), each diagonal entry rounded to the ulp of N_ii (~3% of σ here)
+    np.testing.assert_allclose(torch.diagonal(shift).real.numpy(), float(sigma), rtol=0.05)
+    if site == "robust_solve":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-8 * float(want.abs().max()))
+        np.testing.assert_allclose((n_mat @ got).numpy(), (n_mat @ want).numpy(),
+                                   atol=1e-10 * float((n_mat @ want).abs().max()))
+    else:
+        (x, w), (x0, w0) = got, want
+        np.testing.assert_allclose(w.numpy(), w0.numpy(), atol=1e-10 * float(w0.max()))
+        np.testing.assert_allclose((x @ x.mH).numpy(), n_mat.numpy(), atol=1e-10 * float(w0.max()))
