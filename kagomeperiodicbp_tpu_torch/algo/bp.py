@@ -49,7 +49,7 @@ class BPConfig:
     trunc_dim_cap: Optional[int] = None
     damping: Optional[float] = None     # fraction of the OLD message kept
     hermitize_when_finished: bool = True
-    init_model: str = "uniform"         # 'uniform' | 'random'
+    init_model: str = "uniform"         # 'uniform' | 'random' | 'uniform-classic' | 'random-classic'
     seed: int = 0
     dtype: object = None                # torch dtype; default from the unit cell
     # None = the per-side sweep; the six-side batched program is not ported
@@ -152,7 +152,7 @@ def belief_propagation(cell: UnitCell, messages: Optional[MessageDict], config: 
 
     stats = BPStats(final_config=config)
     # single-layer swallowing consumes the raw kets, double-layer one K1 launch's fused tensors
-    tensors = (cell.A, cell.B, cell.C) if single else C.fused_cells(cell)
+    tensors = C.site_kets(cell) if single else C.fused_cells(cell)
     step_fn = F.bp_iteration(N, D, chi, chi_msg, config.damping, single=single)
     msg_sites = F._msgs_to_sites(messages)
     best_err, best_sites = float("inf"), msg_sites

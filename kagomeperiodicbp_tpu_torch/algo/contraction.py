@@ -49,9 +49,24 @@ def full_scalar_plan(N: int, D: int, chi: int, chi_msg: int, toward: int = int(B
 # --------------------------- tensor binding -------------------------------
 
 
-def fused_cells(cell: UnitCell) -> Tuple[torch.Tensor, ...]:
-    """The 3 fused double-layer tensors (one launch of kernel K1 on the card)."""
-    return fused_tensors(tuple(cell[f] for f in FLAVORS))
+def site_kets(cell) -> Tuple[torch.Tensor, ...]:
+    """A unit cell's three kets (A, B, C), or a per-site view's one ket per
+    block site (anything exposing ``_tensors``, as in the JAX package)."""
+    if hasattr(cell, "_tensors"):
+        return tuple(cell._tensors)
+    return tuple(cell[f] for f in FLAVORS)
+
+
+def fused_sites(kets: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The fused double-layer tensor of each ket: one launch of kernel K1
+    per three kets on the card."""
+    return tuple(f for i in range(0, len(kets), 3) for f in fused_tensors(kets[i:i + 3]))
+
+
+def fused_cells(cell) -> Tuple[torch.Tensor, ...]:
+    """The fused double-layer tensors: 3 for a unit cell (one K1 launch),
+    one per site for a per-site view (one launch per three sites)."""
+    return fused_sites(site_kets(cell))
 
 
 def _make_fetch(fused: Optional[Sequence[torch.Tensor]], msgs: MsgSites,
@@ -98,11 +113,12 @@ def initial_messages(N: int, D: int, chi: int, model: str = "uniform",
                      generator: Optional[torch.Generator] = None,
                      dtype=torch.complex128, device=None) -> MessageDict:
     """Fresh incoming messages for all 6 sides, in canonical padded profile.
-    `model="random"` draws from `generator` (a CPU generator seeded 0 if
-    None); its numbers are torch's, not jax.random's."""
+    The models are ``uniform``, ``random``, ``uniform-classic`` and
+    ``random-classic``; the random ones draw from `generator` (a CPU
+    generator seeded 0 if None), torch's numbers, not jax.random's."""
     n = num_message_sites(N)
     profile = message_bond_profile(N, D, chi)
-    if model == "random" and generator is None:
+    if model.startswith("random") and generator is None:
         generator = torch.Generator().manual_seed(0)
     msgs: MessageDict = {}
     for side in BlockSide:
@@ -110,8 +126,10 @@ def initial_messages(N: int, D: int, chi: int, model: str = "uniform",
             m = mpslib.uniform_message(D, n, dtype, device)
         elif model == "random":
             m = mpslib.random_message(D, n, generator, dtype, device)
-        elif model in ("uniform-classic", "random-classic"):
-            raise NotImplementedError(f"message model {model!r} is not ported yet")
+        elif model == "uniform-classic":
+            m = mpslib.classical_message(D, n, None, dtype, device)
+        elif model == "random-classic":
+            m = mpslib.classical_message(D, n, generator, dtype, device)
         else:
             raise ValueError(f"unknown message model {model!r}")
         msgs[side] = mpslib.pad_bonds(m, profile)

@@ -34,7 +34,6 @@ from ..lattices import BlockSide, KagomeBlock, LatticeDir
 from ..networks.graph import TNGraph
 from ..networks.unit_cell import UnitCell
 from ..ops.contract import execute_plan
-from ..ops.kernels import fused_tensors
 from ..ops.mps import MPS
 from ..planner.compiler import Plan, compile_plan
 from . import contraction as C
@@ -232,13 +231,14 @@ def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
                            edge: UpdateEdge, single_layer: bool = False):
     """The edge environment of one edge class.
 
-    * cells — (A, B, C) ket tensors;
+    * cells — (A, B, C) ket tensors, or one per block site;
     * msg_sites — dict side-int → tuple of message site tensors;
     * single_layer — run the top and bottom boundary plans single-layer
       (large-D memory); the chain ladder still takes the three fused tensors.
 
-    Returns (t1, t2, env, (perm1, perm2)) — see `edge_environment`. The three
-    fused tensors come from one launch of kernel K1 on the card.
+    Returns (t1, t2, env, (perm1, perm2)) — see `edge_environment`. The
+    fused tensors come from one launch of kernel K1 per three kets on the
+    card.
     """
     D = cells[0].shape[1]
     block = KagomeBlock.build(N)
@@ -248,7 +248,7 @@ def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
     if geo.chain[i1 + 1] != n2:
         raise AssertionError("pair must be chain-adjacent")
 
-    fused = fused_tensors(cells)
+    fused = C.fused_sites(cells)
     fetch_plan = C._make_fetch(fused, msg_sites, kets=tuple(cells))
     top_plan, bot_plan = geo.top_plan, geo.bot_plan
     if single_layer:

@@ -3,17 +3,19 @@
 The dict of ``unit_cell_from_numpy`` is the one the JAX package's
 ``UnitCell.save`` pickles ({"A", "B", "C", "rotated"}), and a message set is
 {side_int: [site arrays]}, so a test can hand the same numpy cell and
-messages to both packages. A saved cell or best-store file of either package
+messages to both packages; so are a simple update's λs ({(f1, f2): array})
+and an arbitrary block's per-site tensors. A saved cell or best-store file of either package
 reads with ``UnitCell.load``; a JAX ``ITETracker`` checkpoint with
 ``tracker_from_jax_checkpoint``. Neither imports JAX or its package.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .algo.arbitrary import ArbitraryKagomeTN
 from .algo.bp import BPConfig, BPStats
 from .enums import UpdateMode
 from .lattices import BlockSide
@@ -66,15 +68,32 @@ def messages_from_numpy(sites: Mapping[int, Sequence[np.ndarray]], device=None,
             for s, ss in sites.items()}
 
 
+def lambdas_from_numpy(lams: Mapping[Tuple[int, int], np.ndarray], device=None,
+                       dtype=None) -> Dict[Tuple[int, int], torch.Tensor]:
+    """A simple update's λ vectors by edge class (f1, f2)."""
+    return {(int(k[0]), int(k[1])): _tensor(v, device, dtype) for k, v in lams.items()}
+
+
+def arbitrary_tn_from_numpy(tensors: Sequence[np.ndarray], N: int, device=None,
+                            dtype=None) -> ArbitraryKagomeTN:
+    """An arbitrary block from its per-site ket arrays (the JAX package's
+    ``ArbitraryKagomeTN.tensors``)."""
+    return ArbitraryKagomeTN([_tensor(t, device, dtype) for t in tensors], N)
+
+
 def to_numpy(x):
     """Tensor → ndarray; UnitCell → the save dict; MPS → list of site
-    arrays; a message dict → {side_int: [site arrays]}."""
+    arrays; a message dict → {side_int: [site arrays]}; λs → {(f1, f2):
+    array}; an arbitrary block → its list of per-site arrays."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().resolve_conj().numpy()
     if isinstance(x, UnitCell):
         return {**{f: to_numpy(t) for f, t in x.items()}, "rotated": x.rotated}
     if isinstance(x, MPS):
         return [to_numpy(s) for s in x.sites]
+    if isinstance(x, ArbitraryKagomeTN):
+        return [to_numpy(t) for t in x.tensors]
     if isinstance(x, Mapping):
-        return {int(k): to_numpy(v) for k, v in x.items()}
+        return {(tuple(int(i) for i in k) if isinstance(k, tuple) else int(k)): to_numpy(v)
+                for k, v in x.items()}
     raise TypeError(f"to_numpy: unsupported {type(x)}")

@@ -1,13 +1,19 @@
-// K1 · fused_tensor: the double-layer (ket ⊗ bra) tensors of a unit cell.
+// K1 · fused_tensor: the double-layer (ket ⊗ bra) tensors of a unit cell,
+// and the operator sandwiches of one site.
 //
 // Replaces: kagomeperiodicbp_tpu/ops/pallas_kernels.py · fused_tensor_pallas
 // (kernel _fused_kernel_real), the Pallas twin of networks/unit_cell.fused_tensor.
 //
-//   out_f[(aA),(bB),(cC),(eE)] = Σ_s T_f[s,a,b,c,e] · conj(T_f[s,A,B,C,E])
+//   out_f[(aA),(bB),(cC),(eE)] = Σ_s K_f[s,a,b,c,e] · conj(B_f[s,A,B,C,E])
 //
-// for up to three tensors T_f [d, D,D,D,D] of one cell (the flavours A, B,
-// C), each giving out_f [D²,D²,D²,D²] with (aA) = a·D + A; the outputs lie
-// one after another in one buffer.
+// for up to three ket tensors K_f [d, D,D,D,D] and as many bra tensors B_f
+// of the same shape, each pair giving out_f [D²,D²,D²,D²] with
+// (aA) = a·D + A; the outputs lie one after another in one buffer. The
+// double-layer tensor of a cell takes B_f = K_f, the cell's flavours A, B
+// and C (the bra pointer is the ket pointer). The operator sandwich of one
+// site, ⟨ψ| op |ψ⟩ (networks/unit_cell.fused_tensor_with_operator, plain
+// jnp in the JAX package), takes K_f = op_f·T and B_f = T: one launch makes
+// the sandwiches of three operators at one site.
 //
 // What bounds it on this card: device-memory writes. Each output has D⁸
 // elements (16.8 M at D=8, 268 MB in complex128) and each element costs only
@@ -18,9 +24,10 @@
 // What the design does about it:
 // * one block per output slab: block (f, aA, bB) writes the D⁴ contiguous
 //   elements out_f[aA, bB, :, :], and every one of them is built from the
-//   same ket rows T_f[:, a, b, :, :] and bra rows T_f[:, A, B, :, :]. The
-//   block stages those 2·d·D² elements into shared memory once, reading T
-//   through its own strides (a permuted cell needs no copy first);
+//   same ket rows K_f[:, a, b, :, :] and bra rows B_f[:, A, B, :, :]. The
+//   block stages those 2·d·D² elements into shared memory once, reading K_f
+//   and B_f each through its own strides (a permuted cell needs no copy
+//   first);
 // * within the slab the element (cC, eE) sits at ((c·D + C)·D + e)·D + E,
 //   a 32-bit index; D is a template parameter for D = 1…8, so its divisions
 //   are multiply-shifts, and the same body with D read at run time (DT = 0)
@@ -29,18 +36,22 @@
 //   complex64 or one complex128 per store), neighbouring threads on
 //   neighbouring addresses; where D⁴ is not a multiple of the vector width
 //   (odd D in the narrow types) the slab's ragged ends are stored singly;
-// * one launch for all three flavours of a cell: the grid is n·D⁴ blocks
-//   and the inputs come in one struct of pointers and strides.
+// * one launch for all three flavours of a cell (or three operators at one
+//   site): the grid is n·D⁴ blocks and the inputs come in one struct of
+//   pointers and strides.
 #include "common.cuh"
 
-// The inputs of one launch: up to three tensors T_f [d, D,D,D,D] with their
-// strides in elements, and the output buffer, [n, D²,D²,D²,D²] contiguous.
+// The inputs of one launch: up to three ket tensors K_f [d, D,D,D,D] and
+// as many bra tensors B_f, each with its strides in elements, and the output
+// buffer, [n, D²,D²,D²,D²] contiguous.
 struct FusedTensorsArgs {
   const void* t[3];
   long long stride[3][5];
+  const void* bra[3];
+  long long bra_stride[3][5];
   void* out;
 };
-static_assert(sizeof(FusedTensorsArgs) == 152, "ops/kernels.py _FusedArgs packs 19 fields of 8 bytes");
+static_assert(sizeof(FusedTensorsArgs) == 296, "ops/kernels.py _FusedArgs packs 37 fields of 8 bytes");
 
 // The 16-byte vector a store writes, and how many scalars it holds.
 template <typename T> struct Vec16;
@@ -68,22 +79,25 @@ __global__ void fused_tensors_kernel(const FusedTensorsArgs args, int d, int D_r
   const int a = aA / D, A = aA - (aA / D) * D;
   const int b = bB / D, B = bB - (bB / D) * D;
 
-  // flavour f's pointer and strides, each picked by value (no indexing into
+  // pair f's pointers and strides, each picked by value (no indexing into
   // the parameter struct with a runtime f)
-  const T* t = static_cast<const T*>(f == 0 ? args.t[0] : f == 1 ? args.t[1] : args.t[2]);
-  auto stride = [&](int k) {
-    return f == 0 ? args.stride[0][k] : f == 1 ? args.stride[1][k] : args.stride[2][k];
-  };
-  const long long st_s = stride(0), st_a = stride(1), st_b = stride(2);
-  const long long st_c = stride(3), st_e = stride(4);
-  const long long row_ket = a * st_a + b * st_b;
-  const long long row_bra = A * st_a + B * st_b;
-  for (int i = threadIdx.x; i < 2 * d * D2; i += blockDim.x) {
-    const int which = i >= d * D2;
-    const int r = i - which * d * D2;
-    const int s = r / D2, ce = r - (r / D2) * D2;
+  const T* tk = static_cast<const T*>(f == 0 ? args.t[0] : f == 1 ? args.t[1] : args.t[2]);
+  const T* tb = static_cast<const T*>(f == 0 ? args.bra[0] : f == 1 ? args.bra[1] : args.bra[2]);
+  long long sk[5], sb[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    sk[k] = f == 0 ? args.stride[0][k] : f == 1 ? args.stride[1][k] : args.stride[2][k];
+    sb[k] = f == 0 ? args.bra_stride[0][k] : f == 1 ? args.bra_stride[1][k] : args.bra_stride[2][k];
+  }
+  const T* row_ket = tk + a * sk[1] + b * sk[2];
+  const T* row_bra = tb + A * sb[1] + B * sb[2];
+  // element (s, c, e) of the ket rows and of the bra rows: one index
+  // decode, two independent loads
+  for (int i = threadIdx.x; i < d * D2; i += blockDim.x) {
+    const int s = i / D2, ce = i - (i / D2) * D2;
     const int c = ce / D, e = ce - (ce / D) * D;
-    ket[i] = __ldg(t + (which ? row_bra : row_ket) + s * st_s + c * st_c + e * st_e);
+    ket[i] = __ldg(row_ket + s * sk[0] + c * sk[3] + e * sk[4]);
+    bra[i] = __ldg(row_bra + s * sb[0] + c * sb[3] + e * sb[4]);
   }
   __syncthreads();
 
@@ -140,8 +154,9 @@ static void launch_fused_d(const FusedTensorsArgs& args, int nt, int d, int D, c
   }
 }
 
-// nt (1..3) tensors [d, D,D,D,D] of `dtype`, read through args.stride; the
-// output args.out is [nt, D²,D²,D²,D²], contiguous and 16-byte aligned.
+// nt (1..3) ket tensors [d, D,D,D,D] of `dtype` and as many bra tensors,
+// read through args.stride and args.bra_stride; the output args.out is
+// [nt, D²,D²,D²,D²], contiguous and 16-byte aligned.
 // Returns cudaGetLastError() after the one launch.
 extern "C" int kpbp_fused_tensors(FusedTensorsArgs args, int nt, int d, int D, int dtype,
                                   void* stream) {

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.kernels import fused_tensor
+from ..ops.kernels import fused_tensor, fused_tensors_with_operator
 
 FLAVORS = ("A", "B", "C")
 
@@ -225,4 +225,11 @@ class NumpyUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"refusing to unpickle {module}.{name}")
 
 
-__all__ = ["FLAVORS", "NumpyUnpickler", "UnitCell", "fused_tensor"]
+def fused_tensor_with_operator(t: torch.Tensor, op) -> torch.Tensor:
+    """ket–op–bra sandwich with fused ket-bra pairs: the double-layer tensor
+    of ⟨ψ| op |ψ⟩ at one site, [d, D,D,D,D] + op [d, d] → [D²,D²,D²,D²]
+    (K1's operator form: one launch on the card)."""
+    return fused_tensors_with_operator(t, (op,))[0]
+
+
+__all__ = ["FLAVORS", "NumpyUnpickler", "UnitCell", "fused_tensor", "fused_tensor_with_operator"]

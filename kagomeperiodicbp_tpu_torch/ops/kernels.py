@@ -4,7 +4,10 @@ and the build that turns ``csrc/*.cu`` into a shared library.
 * K1 ``fused_tensor`` — the double-layer tensor of one site
   (``csrc/fused_tensor.cu``; replaces ``fused_tensor_pallas``);
   ``fused_tensors`` makes those of a whole cell (up to three flavours) in
-  one launch. Both read their inputs through the inputs' own strides.
+  one launch. Both read their inputs through the inputs' own strides. Its
+  operator form, ``fused_tensors_with_operator``, gives the kernel a bra
+  apart from the ket: the sandwiches ⟨ψ| op |ψ⟩ of up to three operators
+  at one site in one launch.
 * K2 ``chol_inv`` — Cholesky factor L of a Hermitian PSD G and W = L⁻¹
   (``csrc/chol_inv.cu``; replaces ``chol_inv_pallas``), in two variants
   that ``chol_inv_plan`` picks from k: ``resident`` (the matrix in one
@@ -18,7 +21,8 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``kagomeperiodicbp_tpu_torch/_build/``, under a name keyed by a hash of the
 sources, and bound with ``ctypes`` (a plain C interface: no PyTorch headers,
 so the build takes seconds). K1's wrappers count their launches in
-``FUSED_TENSOR.launches``, ``chol_inv_cuda`` in those of the variant it ran
+``FUSED_TENSOR.launches`` (ket = bra) and ``FUSED_TENSOR_OPERATOR.launches``
+(a separate bra), ``chol_inv_cuda`` in those of the variant it ran
 (``CHOL_INV_VARIANTS``); ``launch_counts`` reads them by kernel name.
 """
 from __future__ import annotations
@@ -146,16 +150,29 @@ def fused_tensors_ref(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return tuple(fused_tensor_ref(t) for t in ts)
 
 
+def fused_tensor_with_operator_ref(t: torch.Tensor, op: torch.Tensor) -> torch.Tensor:
+    """The ket–op–bra sandwich of one site with fused ket-bra pairs:
+    [d, D,D,D,D] + op [d, d] → [D²,D²,D²,D²], the double-layer tensor of
+    ⟨ψ| op |ψ⟩ there."""
+    D = t.shape[1]
+    t_op = torch.tensordot(op.to(t.dtype), t, dims=([1], [0]))
+    tt = torch.tensordot(t_op, t.conj(), dims=([0], [0]))
+    tt = tt.permute(0, 4, 1, 5, 2, 6, 3, 7)
+    return tt.reshape(D * D, D * D, D * D, D * D)
+
+
 class _FusedArgs(ctypes.Structure):
-    """csrc/fused_tensor.cu FusedTensorsArgs: up to three inputs (pointer,
-    strides in elements) and the output buffer, passed by value."""
+    """csrc/fused_tensor.cu FusedTensorsArgs: up to three kets and as many
+    bras (pointer, strides in elements) and the output buffer, passed by
+    value."""
     _fields_ = [("t", ctypes.c_void_p * 3), ("stride", (ctypes.c_longlong * 5) * 3),
+                ("bra", ctypes.c_void_p * 3), ("bra_stride", (ctypes.c_longlong * 5) * 3),
                 ("out", ctypes.c_void_p)]
 
 
-# the same 19 fields packed in one call: several times cheaper per launch
+# the same 37 fields packed in one call: several times cheaper per launch
 # than building _FusedArgs from nested tuples
-_FUSED_ARGS = struct.Struct("<3q15qq")
+_FUSED_ARGS = struct.Struct("<3q15q3q15qq")
 # K1 stages 2·d·D² input elements per block in shared memory
 _K1_SMEM_MAX = 48 * 1024
 
@@ -173,32 +190,49 @@ def _fused_dims(ts: Sequence[torch.Tensor], who: str) -> Tuple[int, int]:
     return shape[0], shape[1]
 
 
-def _fused_launch(ts: Sequence[torch.Tensor], lead: Tuple[int, ...], who: str) -> torch.Tensor:
-    """One K1 launch: fused_tensor_ref(ts[f]) for every f, into one new
-    contiguous tensor of shape lead + [D²]*4 (lead is () or (len(ts),)).
-    Each input is read through its own strides."""
+def _fused_launch(ts: Sequence[torch.Tensor], lead: Tuple[int, ...], who: str,
+                  bras: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """One K1 launch: Σ_s ts[f] ⊗ conj(bras[f]) with the leg pairs fused,
+    for every f, into one new contiguous tensor of shape lead + [D²]*4
+    (lead is () or (len(ts),)); without `bras` each ket is its own bra
+    (fused_tensor_ref). Each input is read through its own strides."""
     d, D = _fused_dims(ts, who)
+    if bras and (len(bras) != len(ts) or any(b.shape != ts[0].shape for b in bras)):
+        raise ValueError(f"{who}: the bras must match the kets in number and shape")
     t0 = ts[0]
     dtype, device = t0.dtype, t0.get_device()
     ptrs, strides = [0, 0, 0], [0] * 15
     for f, t in enumerate(ts):
-        if not t.is_cuda:
-            raise ValueError(f"{who}: expected CUDA tensors, got {t.device}")
-        if t.dtype != dtype or t.get_device() != device:
-            raise TypeError(f"{who}: the flavours differ in dtype or device")
+        _fused_input(t, dtype, device, who)
         ptrs[f] = t.data_ptr()
         strides[5 * f:5 * f + 5] = t.stride()
+    if bras:
+        bra_ptrs, bra_strides = [0, 0, 0], [0] * 15
+        for f, t in enumerate(bras):
+            _fused_input(t, dtype, device, who)
+            bra_ptrs[f] = t.data_ptr()
+            bra_strides[5 * f:5 * f + 5] = t.stride()
+    else:
+        bra_ptrs, bra_strides = ptrs, strides
     code = _DTYPE_CODE.get(dtype)
     if code is None:
         raise TypeError(f"{who}: unsupported dtype {dtype}")
     if 2 * d * D * D * t0.element_size() > _K1_SMEM_MAX:
         raise ValueError(f"{who}: d={d}, D={D} stages more than {_K1_SMEM_MAX} B per block")
     out = torch.empty(lead + (D * D,) * 4, dtype=dtype, device=t0.device)
-    args = _FusedArgs.from_buffer_copy(_FUSED_ARGS.pack(*ptrs, *strides, out.data_ptr()))
+    args = _FusedArgs.from_buffer_copy(
+        _FUSED_ARGS.pack(*ptrs, *strides, *bra_ptrs, *bra_strides, out.data_ptr()))
     rc = build().kpbp_fused_tensors(args, len(ts), d, D, code, _stream(t0))
-    FUSED_TENSOR.launches += 1
+    (FUSED_TENSOR_OPERATOR if bras else FUSED_TENSOR).launches += 1
     _raise_on(rc, who)
     return out
+
+
+def _fused_input(t: torch.Tensor, dtype: torch.dtype, device: int, who: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{who}: expected CUDA tensors, got {t.device}")
+    if t.dtype != dtype or t.get_device() != device:
+        raise TypeError(f"{who}: the flavours differ in dtype or device")
 
 
 def fused_tensor_cuda(t: torch.Tensor) -> torch.Tensor:
@@ -212,8 +246,30 @@ def fused_tensors_cuda(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return _fused_launch(ts, (len(ts),), "fused_tensors_cuda").unbind(0)
 
 
-# the launch count of K1 (both wrappers launch the same kernel)
+def _operator_stack(ops, t: torch.Tensor) -> torch.Tensor:
+    """ops — a [n, d, d] tensor or a sequence of [d, d] arrays — as one
+    [n, d, d] tensor of t's dtype on t's device."""
+    if not isinstance(ops, torch.Tensor):
+        ops = torch.stack([torch.as_tensor(op) for op in ops])
+    return ops.to(device=t.device, dtype=t.dtype)
+
+
+def fused_tensors_with_operator_cuda(t: torch.Tensor, ops) -> Tuple[torch.Tensor, ...]:
+    """K1's operator form on the card: the sandwich of each of 1 to 3
+    operators [d, d] (a [n, d, d] tensor or a sequence) at the site
+    t [d, D,D,D,D] (any strides), in one launch. The kets op·t come from
+    one matrix product, outside the kernel; the bra is t itself."""
+    ops = _operator_stack(ops, t)
+    n, d = ops.shape[0], t.shape[0]
+    kets = (ops.reshape(n * d, d) @ t.reshape(d, -1)).reshape((n,) + tuple(t.shape))
+    return _fused_launch(kets.unbind(0), (n,), "fused_tensors_with_operator_cuda",
+                         bras=(t,) * n).unbind(0)
+
+
+# the launch counts of K1: ket = bra (fused_tensor_cuda, fused_tensors_cuda)
+# and its operator form with a separate bra (fused_tensors_with_operator_cuda)
 FUSED_TENSOR = SimpleNamespace(launches=0)
+FUSED_TENSOR_OPERATOR = SimpleNamespace(launches=0)
 
 
 def fused_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -229,6 +285,17 @@ def fused_tensors(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         _fused_dims(ts, "fused_tensors")
         return fused_tensors_ref(ts)
     return fused_tensors_cuda(ts)
+
+
+def fused_tensors_with_operator(t: torch.Tensor, ops) -> Tuple[torch.Tensor, ...]:
+    """The sandwiches of 1 to 3 operators (a [n, d, d] tensor or a sequence
+    of [d, d] arrays) at the site t: one K1 launch on the card, the plain
+    version on the CPU."""
+    if t.is_cpu:
+        ops = _operator_stack(ops, t)
+        _fused_dims((t,) * len(ops), "fused_tensors_with_operator")
+        return tuple(fused_tensor_with_operator_ref(t, op) for op in ops)
+    return fused_tensors_with_operator_cuda(t, ops)
 
 
 # ------------------------------- K2 ---------------------------------------
@@ -323,6 +390,7 @@ def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # ------------------------------ counters ----------------------------------
 
 KERNELS = {"fused_tensor": FUSED_TENSOR,
+           "fused_tensor_operator": FUSED_TENSOR_OPERATOR,
            "chol_inv_resident": CHOL_INV_VARIANTS["resident"],
            "chol_inv_blocked": CHOL_INV_VARIANTS["blocked"]}
 

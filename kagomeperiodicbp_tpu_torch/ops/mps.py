@@ -8,7 +8,7 @@ contractions stay inside float range. Every function returns new tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -284,3 +284,22 @@ def random_message(D: int, n_sites: int, generator: torch.Generator,
         sites.append(torch.outer(v, v.conj()).reshape(1, D * D, 1))
     return from_sites(sites)
 
+
+
+def classical_message(D: int, n_sites: int, generator: Optional[torch.Generator] = None,
+                      dtype=torch.complex128, device=None) -> MPS:
+    """Classical (diagonal) initial messages: a probability distribution on
+    the diagonal of each fused D² leg. ``generator=None`` gives the uniform
+    distribution ("uniform-classic"); otherwise each site's weights are
+    drawn from `generator` in [0.1, 1) and normalised ("random-classic";
+    torch's numbers, not jax.random's)."""
+    if generator is None:
+        site = torch.diag(torch.full((D,), 1.0 / D, dtype=dtype, device=device)).reshape(1, D * D, 1)
+        return from_sites([site] * n_sites)
+    rd = _real_dtype(dtype)
+    sites = []
+    for _ in range(n_sites):
+        w = 0.1 + 0.9 * torch.rand(D, generator=generator, dtype=rd, device=generator.device)
+        w = (w / w.sum()).to(device=device, dtype=dtype)
+        sites.append(torch.diag(w).reshape(1, D * D, 1))
+    return from_sites(sites)

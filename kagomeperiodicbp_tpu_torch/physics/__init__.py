@@ -1,3 +1,3 @@
-from . import hamiltonians, metrics, pauli
+from . import hamiltonians, metrics, operators, pauli
 
-__all__ = ["hamiltonians", "metrics", "pauli"]
+__all__ = ["hamiltonians", "metrics", "operators", "pauli"]

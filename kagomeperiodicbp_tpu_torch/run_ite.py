@@ -6,10 +6,8 @@
     python -m kagomeperiodicbp_tpu_torch.run_ite -D 2 -N 2 --steps 2 --device cpu
 
 It runs on the card unless ``--device cpu`` is given, and raises without one.
-Not ported yet, and refused with ``NotImplementedError``: the simple-update
-starts (``--cell su``, ``su:…``; ROADMAP queue 1.7), the published tnsu
-start (``--cell tnsu``; queue 1.7) and ``--live-plots`` (the visualisation
-module).
+Not ported yet, and refused with ``NotImplementedError``: ``--live-plots``
+(the visualisation module).
 """
 from __future__ import annotations
 
@@ -20,11 +18,13 @@ import os
 import torch
 
 from .algo.ite import ITEConfig, ITETracker, default_time_steps, full_ite
+from .algo.simple_update import simple_update
 from .config import Config
 from .measure import setup_device
 from .networks.unit_cell import UnitCell
 from .physics import hamiltonians
 from .utils.best_store import load_best
+from .utils.foreign import tnsu_unit_cell
 from .utils.progress import ProgressHierarchy
 
 _DTYPES = {n: getattr(torch, n) for n in ("complex64", "complex128", "float32", "float64")}
@@ -42,10 +42,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=None, help="total segments (overrides ladder)")
     p.add_argument("--steps-per-dt", type=int, default=20)
     p.add_argument("--cell", default="random",
-                   help="random | product | zero | q0 | q0- | best | pad:<D> | <path.pkl> "
+                   help="random | product | zero | q0 | q0- | su[:q0|q0-|product] | tnsu[:path] | "
+                        "best | pad:<D> | <path.pkl> "
                         "(q0/q0- = 120-degree q=0 product order, either chirality; "
-                        "best = current best-store record for this D; pad:<D> = the best "
-                        "record of a smaller D, zero-padded); su and tnsu are not ported")
+                        "su = simple-update warm start, seeded random or from the named "
+                        "state; tnsu = the published tnsu SU state for this D, or the "
+                        "tnsu-format set at path; best = current best-store record for "
+                        "this D; pad:<D> = the best record of a smaller D, zero-padded)")
     p.add_argument("--init-noise", type=float, default=0.02,
                    help="noise fraction added to structured inits (q0/zero) "
                         "so virtual bonds start full-rank")
@@ -103,10 +106,30 @@ def initial_cell(args, dtype: torch.dtype, device: torch.device, log) -> UnitCel
                                               dtype, device)
         return cell.add_noise(args.init_noise, gen) if args.init_noise else cell
     if args.cell == "su" or args.cell.startswith("su:"):
-        raise NotImplementedError("the simple-update start is not ported yet (ROADMAP queue 1.7)")
+        # `su` = random seed; `su:q0` / `su:q0-` / `su:product` seed the SU
+        # from a structured state: a random-seeded SU on the kagome lattice
+        # tends to freeze into a dimerised local minimum (the JAX package
+        # measured −0.326 at D=3 against the published SU −0.41786), while
+        # the 120° q=0 seed keeps it in the magnetically ordered basin
+        seed_cell = None
+        sub = args.cell.partition(":")[2]
+        if sub in ("q0", "q0-"):
+            seed_cell = UnitCell.product_state_120(args.d, args.D, +1 if sub == "q0" else -1,
+                                                   dtype, device)
+            seed_cell = seed_cell.add_noise(args.init_noise or 0.05, gen)
+        elif sub == "product":
+            seed_cell = UnitCell.random_product_state(args.d, args.D, gen, dtype)
+        elif sub:
+            raise SystemExit(f"unknown su seed '{sub}' (use q0 | q0- | product)")
+        log.info("simple-update warm start (D=%d, seed=%s)…", args.D, sub or "random")
+        cell, _ = simple_update(hamiltonians.BY_NAME[args.hamiltonian](), D=args.D, d=args.d,
+                                dtype=dtype, cell=seed_cell, generator=gen, device=device)
+        return cell
     if args.cell == "tnsu" or args.cell.startswith("tnsu:"):
-        raise NotImplementedError("the published tnsu start (utils/foreign) is not ported yet "
-                                  "(ROADMAP queue 1.7)")
+        cell, foreign_e = tnsu_unit_cell(args.D, dtype=dtype, path=args.cell.partition(":")[2] or None,
+                                         device=device)
+        log.info("warm start from tnsu SU state (D=%d, foreign energy=%s)", args.D, foreign_e)
+        return cell.add_noise(args.init_noise, gen) if args.init_noise else cell
     if args.cell == "best":
         rec = load_best(args.D)
         if rec is None:

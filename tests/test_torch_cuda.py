@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from kagomeperiodicbp_tpu_torch.algo import contraction as C
+from kagomeperiodicbp_tpu_torch.algo.arbitrary import _PerSiteCellView
+from kagomeperiodicbp_tpu_torch.algo.measurements import measure_xyz_sandwich
 from kagomeperiodicbp_tpu_torch.algo import edge_env as E
 from kagomeperiodicbp_tpu_torch.algo import fused as F
 from kagomeperiodicbp_tpu_torch.convert import unit_cell_from_numpy
@@ -23,7 +25,7 @@ from kagomeperiodicbp_tpu_torch.ops import ite_kernels as IK
 from kagomeperiodicbp_tpu_torch.ops import kernels as K
 from kagomeperiodicbp_tpu_torch.ops import linalg as L
 from kagomeperiodicbp_tpu_torch.ops import mps as mpslib
-from kagomeperiodicbp_tpu_torch.physics import hamiltonians
+from kagomeperiodicbp_tpu_torch.physics import hamiltonians, pauli
 
 DTYPES = {"c64": torch.complex64, "c128": torch.complex128,
           "f32": torch.float32, "f64": torch.float64}
@@ -138,6 +140,61 @@ def test_fused_tensors_cuda_rejects_mismatched_inputs(cuda):
         K.fused_tensors_cuda((a, a.cpu()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["c64", "c128"])
+@pytest.mark.parametrize("D", [2, 3, 6])
+def test_fused_tensors_with_operator_cuda_matches_ref(cuda, D, dtype):
+    """K1's operator form: the x, y, z sandwiches of one site in one launch,
+    counted on its own counter, against the plain version; the bra is read
+    through its strides (a permuted view here)."""
+    t = _ket(D, DTYPES[dtype], seed=20 + D).to(cuda).permute(0, 2, 1, 4, 3)
+    ops = [torch.as_tensor(pauli.ALL[k]) for k in "xyz"]
+    before = K.launch_counts()
+    got = K.fused_tensors_with_operator(t, ops)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "fused_tensor": 0, "fused_tensor_operator": 1, "chol_inv_resident": 0, "chol_inv_blocked": 0}
+    for g, op in zip(got, ops):
+        want = K.fused_tensor_with_operator_ref(t, op.to(cuda))
+        assert (g - want).abs().max().item() < K1_ATOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 7, 21])
+def test_fused_cells_of_per_site_view_one_launch_per_three(cuda, n):
+    kets = [_ket(2, torch.complex128, seed=40 + i).to(cuda) for i in range(n)]
+    before = _k1_launches()
+    got = C.fused_cells(_PerSiteCellView(kets))
+    torch.cuda.synchronize()
+    assert _k1_launches() == before + -(-n // 3)
+    assert len(got) == n
+    for g, t in zip(got, kets):
+        assert (g - K.fused_tensor_ref(t)).abs().max().item() < K1_ATOL["c128"]
+
+
+@pytest.mark.cuda
+def test_measure_xyz_sandwich_on_card_matches_cpu(cuda):
+    """The 9 sandwich values at N=2, D=2 on the card against the CPU port,
+    with K1 launched 1 + 3 times (the shared fused cell, then one operator
+    launch per flavour)."""
+    data = {f: _ket(2, torch.complex128, seed=50 + i).numpy() for i, f in enumerate("ABC")}
+    out = {}
+    for dev in ("cpu", cuda):
+        cell = unit_cell_from_numpy(data, device=dev)
+        msgs = C.initial_messages(2, 2, 8, model="random-classic",
+                                  generator=torch.Generator().manual_seed(5), device=dev)
+        before = K.launch_counts()
+        out[str(dev)] = measure_xyz_sandwich(cell, msgs, 2, 16, 8)
+        after = K.launch_counts()
+        if dev != "cpu":
+            assert after["fused_tensor"] - before["fused_tensor"] == 1
+            assert after["fused_tensor_operator"] - before["fused_tensor_operator"] == 3
+    for f in "ABC":
+        for k in "xyz":
+            assert abs(out[str(cuda)][f][k] - out["cpu"][f][k]) < 1e-10
+
+
 def _size(name, dtype):
     """k for a named case: panel edges of the blocked variant (nb), the
     resident/blocked switch, the largest resident matrix that fits one
@@ -157,7 +214,7 @@ def _check_chol_inv(g, dtype, variant=""):
     torch.cuda.synchronize()
     after = K.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
-        "fused_tensor": 0, "chol_inv_resident": int(want == "resident"),
+        "fused_tensor": 0, "fused_tensor_operator": 0, "chol_inv_resident": int(want == "resident"),
         "chol_inv_blocked": int(want == "blocked")}
     l_ref, w_ref = K.chol_inv_ref(g)
     assert ((l - l_ref).abs().max() / l_ref.abs().max()).item() < K2_RTOL[dtype]

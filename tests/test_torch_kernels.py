@@ -77,7 +77,9 @@ def test_fused_tensor_on_cpu_takes_plain_version():
     K.reset_launch_counts()
     K.fused_tensor(torch.from_numpy(_ket(2, np.complex128)))
     K.fused_tensors([torch.from_numpy(_ket(2, np.complex128, seed=s)) for s in range(3)])
-    assert K.launch_counts() == {"fused_tensor": 0, "chol_inv_resident": 0, "chol_inv_blocked": 0}
+    K.fused_tensors_with_operator(torch.from_numpy(_ket(2, np.complex128)), [np.eye(2)] * 3)
+    assert K.launch_counts() == {"fused_tensor": 0, "fused_tensor_operator": 0,
+                                 "chol_inv_resident": 0, "chol_inv_blocked": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.fused_tensor_cuda(torch.zeros((2, 2, 2, 2, 2), dtype=torch.complex128))
 
