@@ -67,10 +67,31 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    (tests/assets/warm_start_D2.npz) against the JAX package's measurement
    of it; pmps_inner of a small chain, card against
    CPU;
-11. a JSON line with K1's cases by D, one with the ITE numbers, one with
-   the single-layer numbers, one with the warm-start numbers, then one with
-   every kernel's launches on the main paths, error, times and bound; the
-   card's name and power limit; then the result line.
+11. the batched six-side sweep, which BP takes by itself below D=6 (the
+   pin measurements of phases 4-5 and the block measurements of phase 10
+   run it; every BP run's sweep is printed phase by phase): one batched
+   sweep at N=2, D=3, χ=18 on the pin cell and phase 6's messages against
+   the per-side sweep on the card in complex128 and complex64, both timed
+   in turns and profiled in complex64; one of each under KPBP_LINALG=gram,
+   where the batched sweep launches K2 a third as often, variant by
+   variant, with K2 then held to its plain version at every (3, k) size it
+   took; at D=5, χ_msg=50, χ=60, from dense random messages, a batched
+   and a per-side sweep and a second batched sweep in complex64, timed with
+   peak memory, then one class of the batched sweep against the per-side
+   body in complex128 with exact SVDs, held; then the square lattice
+   (square/*, run_square): the JAX package's values at n=4, m=2, D=2
+   (tests/assets/square_D2.npz) and the simple update from its start, card
+   against CPU; run_square at D=4, χ 32/42 in complex128 and complex64, its
+   SU ladder cut, each step timed with K1's launches (plain and operator
+   form); at D=3 the simple update from the JAX package's start, BP and
+   the energy against its values (tests/assets/square_D3.npz), then a
+   full-update polish that must lower the energy; one square
+   BP under KPBP_LINALG=gram, on K2;
+12. a JSON line with K1's cases by D, one with the ITE numbers, one with
+   the single-layer numbers, one with the warm-start numbers, one with
+   phase 11's, then one with every kernel's launches on the main paths,
+   error, times and bound; the card's name and power limit; then the
+   result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -149,9 +170,12 @@ def chol_inv_work(k, dt, torch):
 
 
 def device_events(torch, prof):
-    """(name, start µs, end µs) of every device activity a profile saw."""
-    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    """(name, start µs, end µs) of every device activity a profile saw, read
+    from the profiler's raw events: building its FunctionEvents takes tens of
+    seconds for a BP sweep's ~10⁵ launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
 
 
 def device_ms(torch, fn, calls=20, sleep_cycles=20_000_000):
@@ -813,7 +837,7 @@ def sl_production(torch, K, L, C, F, CT, BP, UnitCell, BlockSide, UpdateEdge, ha
     c64 = torch.complex64
     cfg = BP.BPConfig(trunc_dim=SL_CHI_MSG, bubble_trunc_dim=SL_CHI, max_iterations=1 + SL_SWEEPS,
                       msg_diff_terminate=0.0, dtype=c64)
-    auto = BP.use_single_layer(cfg, SL_D)
+    auto = BP.bp_mode(cfg, SL_D) == "single"
     print(f"single-layer production D={SL_D}: BPConfig(single_layer=None) picks "
           f"{'single' if auto else 'double'}-layer (the auto switch turns it on from D=6)")
     if not auto:
@@ -1257,6 +1281,477 @@ def pmps_check(torch, P, dev):
     return {"card": [card.real, card.imag], "cpu": [cpu.real, cpu.imag], "gap": gap}
 
 
+# phase 11: the batched six-side sweep and the square lattice
+B_N, B_CHI = 2, 18    # phase 6's sweep (bench.py's bp_sweeps_per_second_D3_N2_chi18)
+# batched against per-side, by message distance and mean distance: complex128
+# at the parity bar, complex64 at the North star's bp bar
+BATCHED_TOL = {"complex128": 1e-10, "complex64": 2e-5}
+B_ROUNDS = 2          # timed rounds of per-side, batched, batched, per-side
+# the largest D the auto rule runs batched, at χ_msg = 2D², χ = 2D²+10
+WIDE_D, WIDE_CHI_MSG, WIDE_CHI = 5, 50, 60
+# the square lattice: tests/assets/square_D2.npz (tools/make_square_case.py)
+# holds the JAX package's values at n=4, m=2, D=2, χ_msg=8, χ=18
+SQ_CASE = os.path.join(REPO, "tests", "assets", "square_D2.npz")
+SQ_N, SQ_M, SQ_D, SQ_CHI_MSG, SQ_CHI = 4, 2, 2, 8, 18
+SQ_BONDS = [(0, 0), (1, 1)]
+SQ_SU_DTS, SQ_SU_SWEEPS = (0.1, 0.05, 0.01), 30       # the asset's SU ladder
+SQ_TOL = 1e-10
+# run_square at D=4 (χ_msg = 2D² = 32, χ = 42), cut to fit: its SU ladder
+# keeps its 7 stages (0.1 → 0.001) at 10 sweeps each in place of 60, and its
+# BP stops after SQ_BP_CUT sweeps in place of 60 (~1.1 s each on an H100)
+SQ_RUN = ["-D", "4", "-m", "2", "-n", "4"]
+SQ_SU_CUT = ["--sweeps-per-dt", "10"]
+SQ_BP_CUT = 10
+SQ_REFS = {"Neel": -0.5, "exact": -0.6694}
+# D=3: tests/assets/square_D3.npz holds the JAX package's simple update over
+# SQ_FU_SU_DTS x SQ_FU_SU_SWEEPS from run_square's seed-0 start, its BP (at
+# most SQ_FU_SU_BP sweeps) and energy at χ_msg=18, χ=28, and how far a 1e-15
+# change of the start moves them; the full-update polish from that cell runs
+# two dt stages of one sweep, each of its BP runs cut to SQ_FU_BP sweeps
+# (full_update's default 40)
+SQ_CASE_D3 = os.path.join(REPO, "tests", "assets", "square_D3.npz")
+SQ_FU_D, SQ_FU_SU_DTS, SQ_FU_SU_SWEEPS, SQ_FU_SU_BP = 3, (0.1, 0.05, 0.02), 30, 60
+SQ_FU_DTS, SQ_FU_BP = (0.05, 0.02), 12
+
+
+def _sq_bar(move) -> float:
+    """SQ_TOL, or 100x the JAX package's own move under a 1e-15 change of
+    its input where that move exceeds 1e-12 (tests/test_torch_square.py's
+    rule)."""
+    move = float(move)
+    return SQ_TOL if move <= 1e-12 else max(SQ_TOL, 100 * move)
+
+
+def _delta(K, fn):
+    """(fn(), the kernels' launches during it)."""
+    before = K.launch_counts()
+    out = fn()
+    after = K.launch_counts()
+    return out, {n: after[n] - before[n] for n in after}
+
+
+def _add(total, delta):
+    for n, c in delta.items():
+        total[n] = total.get(n, 0) + c
+
+
+def _msg_gaps(M, a, b) -> dict:
+    """Distance of two message sets, side by side (gauge-free)."""
+    return {int(s): float(M.distance(*(M.from_sites(tuple(x.cpu() for x in m[s])) for m in (a, b))))
+            for s in a}
+
+
+def batched_checks(torch, K, L, M, C, F, B, BlockSide, cell64, msgs64, dev):
+    """Phase 11.1-11.3: one batched sweep (N=2, D=3, χ=18) on the pin cell
+    and phase 6's messages against the per-side sweep on the card, in
+    complex128 and complex64; both timed in complex64, in turns, and each
+    profiled once; then one sweep of each under KPBP_LINALG=gram, where the
+    batched one must launch K2 a third as often, variant by variant, and K2
+    is held to its plain version at every (3, k) the batched sweep gave it.
+    Returns the results and the batched path's launches (K1's for the
+    fused cell included)."""
+    D, res, counts = cell64.D, {}, {n: 0 for n in K.KERNELS}
+    t_start = time.perf_counter()
+    per_side = F.bp_iteration(B_N, D, B_CHI, B_CHI, None)
+    batched = B.bp_iteration_batched(B_N, D, B_CHI, B_CHI, None)
+    inputs = {}
+    for name in ("complex128", "complex64"):
+        dt = getattr(torch, name)
+        cell = cell64.astype(dt)
+        sites = {s: tuple(x.to(dt) for x in ss) for s, ss in msgs64.items()}
+        fused, d_k1 = _delta(K, lambda: C.fused_cells(cell))
+        _add(counts, d_k1)
+        inputs[name] = (fused, sites)
+        want, e_want = per_side(fused, sites)
+        (got, e_got), d = _delta(K, lambda: batched(fused, sites))
+        _add(counts, d)
+        gaps = {BlockSide(s).name: g for s, g in _msg_gaps(M, got, want).items()}
+        mean_gap = abs(float(e_got) - float(e_want))
+        res[name] = {"distances": gaps, "mean_distance_gap": mean_gap,
+                     "mean_distance": float(e_got)}
+        print(f"batched sweep N={B_N} D={D} chi={B_CHI} {name} (pin cell, phase 6's messages): "
+              f"distance to the per-side messages {json.dumps(gaps)}, mean distance {float(e_got):.6e} "
+              f"against {float(e_want):.6e} (tol {BATCHED_TOL[name]:g}); {time.perf_counter() - t_start:.1f} s "
+              f"into the phase")
+        if not max(list(gaps.values()) + [mean_gap]) < BATCHED_TOL[name]:
+            raise AssertionError(f"the batched sweep differs from the per-side one in {name}: {res[name]}")
+
+    res["checks_s"] = time.perf_counter() - t_start
+    fused, sites = inputs["complex64"]
+    times = {"per_side": [], "batched": []}
+
+    def timed(label, sweep):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(sweep(fused, sites)[1])
+        times[label].append(time.perf_counter() - t0)
+
+    for label, sweep in (("per_side", per_side), ("batched", batched)):
+        float(sweep(fused, sites)[1])  # warm-up
+    for _ in range(B_ROUNDS):
+        for label, sweep in (("per_side", per_side), ("batched", batched),
+                             ("batched", batched), ("per_side", per_side)):
+            timed(label, sweep)
+    res["timing_c64"] = {k: {"s_all": v, "s_median": statistics.median(v)} for k, v in times.items()}
+    for label, sweep in (("per_side", per_side), ("batched", batched)):
+        wall, events = profile_once(torch, dev, lambda: float(sweep(fused, sites)[1]))
+        busy, device, by_name = device_summary(events, wall)
+        by_count = {}
+        for n, _, _ in events:
+            by_count[n[:60]] = by_count.get(n[:60], 0) + 1
+        res["timing_c64"][label]["profile"] = {
+            "wall_s": wall, "device_busy": busy, "device_s": device, "device_events": len(events),
+            "top_device": top_device(by_name),
+            "top_by_count": sorted(by_count.items(), key=lambda kv: -kv[1])[:6]}
+    t_ps, t_b = (res["timing_c64"][k]["s_median"] for k in ("per_side", "batched"))
+    print(f"BP sweep N={B_N} D={D} chi={B_CHI} c64, in turns over {B_ROUNDS} rounds: per-side median "
+          f"{t_ps * 1e3:.1f} ms, batched {t_b * 1e3:.1f} ms ({t_ps / t_b:.2f}x); " + "; ".join(
+              f"{k} profiled: {p['wall_s'] * 1e3:.1f} ms wall, device busy {100 * p['device_busy']:.1f}%, "
+              f"{p['device_events']} device events, top device time "
+              + ", ".join(f"{n} {pct}%" for n, pct in p["top_device"][:4])
+              + f"; device events by kernel {p['top_by_count'][:4]}"
+              for k, p in ((k, res["timing_c64"][k]["profile"]) for k in ("per_side", "batched"))))
+
+    res["timing_s"] = time.perf_counter() - t_start - res["checks_s"]
+    fused, sites = inputs["complex128"]
+    gram = {}
+    with_gram = lambda fn: _with_env({"KPBP_LINALG": "gram"}, fn)  # noqa: E731
+    t0 = time.perf_counter()
+    (want, _), gram["per_side"] = _delta(K, lambda: with_gram(lambda: per_side(fused, sites)))
+    t_ps = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ((got, _), k_seen), gram["batched"] = _delta(
+        K, lambda: k2_sizes(L, lambda: with_gram(lambda: batched(fused, sites))))
+    t_b = time.perf_counter() - t0
+    _add(counts, gram["batched"])
+    gap = max(_msg_gaps(M, got, want).values())
+    print(f"timed sweeps {res['timing_s']:.1f} s; gram sweep N={B_N} D={D} chi={B_CHI} c128: per-side {t_ps:.2f} s, launches "
+          f"{json.dumps(gram['per_side'])}; batched {t_b:.2f} s, launches {json.dumps(gram['batched'])}; "
+          f"K2 sizes (batch 3) k:calls {json.dumps(dict(sorted(k_seen.items())))}; message distance {gap:.3e}")
+    k2v = ("chol_inv_resident", "chol_inv_blocked")
+    if not sum(gram["batched"][v] for v in k2v) > 0 or any(
+            gram["per_side"][v] != 3 * gram["batched"][v] for v in k2v):
+        raise AssertionError(f"the batched gram sweep did not launch K2 a third as often: {gram}")
+    if not gap < BATCHED_TOL["complex128"]:
+        raise AssertionError(f"the batched gram sweep differs from the per-side one by {gap}")
+    gen = torch.Generator().manual_seed(11)
+    k2 = {}
+    for k in sorted(k_seen):
+        g = torch.stack([_spd(torch, gen, torch.complex128, k) for _ in range(3)]).to(dev)
+        l, w = K.chol_inv_cuda(g)
+        l_ref, w_ref = K.chol_inv_ref(g)
+        err = max(((l - l_ref).abs().max() / l_ref.abs().max()).item(),
+                  ((w - w_ref).abs().max() / w_ref.abs().max()).item())
+        flops, nbytes = chol_inv_work(k, torch.complex128, torch)
+        b_ms, b_by = bound(3 * flops, 3 * nbytes)
+        k2[str(k)] = {"calls": k_seen[k], "variant": K.chol_inv_plan(k, torch.complex128).variant,
+                      "rel_err": err, "ms": _ms(torch, lambda: K.chol_inv_cuda(g), budget_ms=60.0),
+                      "plain_ms": _ms(torch, lambda: K.chol_inv_ref(g), budget_ms=60.0),
+                      "library_ms": _ms(torch, lambda: _library(torch, g), budget_ms=60.0),
+                      "bound_ms": b_ms, "bound_by": b_by}
+        if not err < K2_TOL["complex128"]:
+            raise AssertionError(f"K2 at batch 3, k={k} disagrees with its plain version: {err}")
+    print("K2 at batch 3, c128, at every size of the batched gram sweep (tol "
+          f"{K2_TOL['complex128']:g}): " + "; ".join(
+              f"k={k} ({r['variant']}, {r['calls']} calls) rel_err {r['rel_err']:.1e}, kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
+              for k, r in k2.items()))
+    res["gram_c128"] = {"per_side": {"s": t_ps, "launches": gram["per_side"]},
+                        "batched": {"s": t_b, "launches": gram["batched"]},
+                        "distance": gap, "k2_batch3": k2}
+    return res, counts
+
+
+def _dense_messages(torch, C, F, D, chi, seed, dev):
+    """Complex64 messages in the canonical padded profile with every entry
+    drawn from a seeded Gaussian: generic spectra, unlike the product
+    messages of ``initial_messages``."""
+    gen = torch.Generator().manual_seed(seed)
+    profile = F._msgs_to_sites(C.initial_messages(B_N, D, chi, dtype=torch.complex64))
+    return {s: tuple(torch.complex(*(torch.randn(x.shape, generator=gen) for _ in range(2))).to(dev)
+                     for x in ss) for s, ss in profile.items()}
+
+
+def wide_batched(torch, K, L, M, C, F, B, BlockSide, UnitCell, dev):
+    """Phase 11.4: D=5, N=2, χ_msg=50, χ=60, on a seeded random cell, from
+    seeded dense messages (``_dense_messages``). In complex64, as BP runs:
+    a batched and a per-side sweep, then a second batched sweep from the
+    first one's messages, each timed with peak device memory, the first
+    two's distance printed. In complex128 with exact SVDs in place of the
+    randomized one (L.RSVD_MIN_DIM lifted), for one class of three sides
+    (the exact SVDs take ~15 s per class and body on an H100): the batched
+    sweep's vmapped call against the per-side body toward each side, held
+    at BATCHED_TOL, far below what the sweep moves the messages. The
+    randomized SVD's sweeps are not held: on these
+    messages its truncation is far from the exact one, and batched and
+    per-side sweeps part by O(0.1) on the card, in complex128 too, while
+    with exact SVDs they agree to round-off (tools/batched_rsvd_check.py;
+    ROADMAP queue 3)."""
+    cell = UnitCell.random(2, WIDE_D, torch.Generator().manual_seed(5), dtype=torch.complex64).to_device(dev)
+    batched = B.bp_iteration_batched(B_N, WIDE_D, WIDE_CHI, WIDE_CHI_MSG, None)
+    per_side = F.bp_iteration(B_N, WIDE_D, WIDE_CHI, WIDE_CHI_MSG, None)
+    runs = {}
+
+    def run(label, sweep, fused, msgs):
+        _fresh_peak(torch)
+        t0 = time.perf_counter()
+        out, err = sweep(fused, msgs)
+        err = float(err)
+        runs[label] = {"s": time.perf_counter() - t0, "peak_gb": _peak_gb(torch), "msgs": out,
+                       "mean_distance": err}
+
+    fused, start = C.fused_cells(cell), _dense_messages(torch, C, F, WIDE_D, WIDE_CHI_MSG, 6, dev)
+    run("batched_1", batched, fused, start)
+    run("per_side", per_side, fused, start)
+    run("batched_2", batched, fused, runs["batched_1"]["msgs"])
+    res = {k: {x: v for x, v in r.items() if x != "msgs"} for k, r in runs.items()}
+    a, b = runs["batched_1"], runs["per_side"]
+    res["complex64"] = {"distances": _msg_gaps(M, a["msgs"], b["msgs"]),
+                        "mean_distance_gap": abs(a["mean_distance"] - b["mean_distance"])}
+
+    # one class of three sides in complex128 with exact SVDs: its vmapped
+    # call against the per-side body toward each of its sides
+    c128, base = torch.complex128, next(iter(B.CLASS_SIDES))
+    fused = C.fused_cells(cell._map(lambda t: t.to(c128)))
+    start = {s: tuple(x.to(c128) for x in ss) for s, ss in start.items()}
+    min_dim = L.RSVD_MIN_DIM
+    L.RSVD_MIN_DIM = 10 ** 9
+    try:
+        t0 = time.perf_counter()
+        stacked = B._class_outgoing(B._rotated_fused_stacks(fused), B._stacked_msg_sites(start, base),
+                                    B_N, WIDE_D, WIDE_CHI, WIDE_CHI_MSG, base)
+        got = {side: tuple(x[k] for x in stacked) for k, side in enumerate(B.CLASS_SIDES[base])}
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = {side: F._one_outgoing(tuple(fused), start, B_N, WIDE_D, WIDE_CHI, WIDE_CHI_MSG, side).sites
+                for side in got}
+        t_p = time.perf_counter() - t0
+    finally:
+        L.RSVD_MIN_DIM = min_dim
+    moved = min(_msg_gaps(M, {s: start[int(BlockSide(s).opposite())] for s in got},
+                          {s: tuple(mps.reverse().sites) for s, mps in
+                           ((s, M.from_sites(x)) for s, x in want.items())}).values())
+    res["complex128_exact_class"] = {"sides": list(got), "batched_s": float(t_b), "per_side_s": float(t_p),
+                                     "distances": _msg_gaps(M, got, want), "least_move": moved}
+    del fused, start, stacked
+    tol = BATCHED_TOL["complex128"]
+    r = res["complex128_exact_class"]
+    print(f"batched sweep D={WIDE_D} N={B_N} chi_msg={WIDE_CHI_MSG} chi={WIDE_CHI}: c64 " + "; ".join(
+        f"{k} {x['s']:.2f} s, peak {x['peak_gb']:.2f} GB, mean distance {x['mean_distance']:.4e}"
+        for k, x in res.items() if "s" in x) + f"; batched against per-side from dense messages: "
+        f"c64 distances {json.dumps(res['complex64']['distances'])}, mean distance gap "
+        f"{res['complex64']['mean_distance_gap']:.2e} (printed only); class of sides {r['sides']} in c128 with "
+        f"exact SVDs: vmapped call {t_b:.2f} s, per-side calls {t_p:.2f} s, distances {json.dumps(r['distances'])} "
+        f"(tol {tol:g}), each message {moved:.3e} or more from the one it replaces")
+    if not max(r["distances"].values()) < tol:
+        raise AssertionError(f"the D={WIDE_D} batched class differs from the per-side calls: {res}")
+    if not moved > 1e6 * tol:
+        raise AssertionError(f"the D={WIDE_D} sweep barely moves its messages: {res}")
+    return res
+
+
+def square_checks(torch, K, L, M, S, FU, run_square, hamiltonians, dev):
+    """Phase 11.5-11.9: the square lattice on the card. The asset's cell
+    (n=4, m=2, D=2, c128) measured against the JAX package's values; the
+    simple update from the JAX package's start, then BP, energy and bond
+    expectations, on the card against the same on the CPU port and its λ
+    against the JAX package's; run_square at D=4 (χ 32/42) in complex128
+    and complex64, each step timed with its launches (its energy printed
+    beside the square AFM's references and only held between the exact
+    value less 0.03 and 0: nothing else computes it at D=4 to compare);
+    at D=3 the simple update from the JAX package's start, its BP and
+    energy against the JAX package's (tests/assets/square_D3.npz), then a
+    full-update polish that must lower the energy; one BP under
+    KPBP_LINALG=gram, which must launch K2. Returns the results and the
+    square path's launches."""
+    import numpy as np
+
+    from kagomeperiodicbp_tpu_torch.convert import square_cell_from_numpy, square_messages_from_numpy
+
+    with np.load(SQ_CASE) as z:
+        case = dict(z)
+    h = hamiltonians.heisenberg_afm()
+    counts, res = {n: 0 for n in K.KERNELS}, {}
+    sides = {}
+    for key, x in case.items():
+        if key.startswith("msg_"):
+            _, s, k = key.split("_")
+            sides.setdefault(int(s), {})[int(k)] = x
+    want_msgs = {int(s): m.sites for s, m in square_messages_from_numpy(
+        {s: [v[k] for k in sorted(v)] for s, v in sides.items()}).items()}
+
+    def measured(cell, msgs=None):
+        """BP (from `msgs` or uniform), energy and bond expectations."""
+        if msgs is None:
+            msgs, _ = S.belief_propagation(cell, SQ_N, SQ_D, SQ_CHI_MSG, chi=SQ_CHI)
+        e = S.measure_energy(cell, SQ_N, SQ_D, msgs, SQ_CHI, SQ_CHI_MSG, h)
+        bonds = {o: [FU.bond_expectation(cell, SQ_N, SQ_D, msgs, SQ_CHI, SQ_CHI_MSG, h, o, i, j)
+                     for i, j in SQ_BONDS] for o in "hv"}
+        return {int(s): m.sites for s, m in msgs.items()}, e, bonds
+
+    # the asset's cell on the card against the JAX package
+    t0 = time.perf_counter()
+    (msgs, e, bonds), d = _delta(K, lambda: measured(square_cell_from_numpy(case["cell"], device=dev)))
+    _add(counts, d)
+    jax_gap = {"messages": max(_msg_gaps(M, msgs, want_msgs).values()),
+               "energy": abs(e - float(case["energy"])),
+               **{f"bond_{o}": max(abs(a - b) for a, b in zip(bonds[o], case[f"bond_{o}"])) for o in "hv"}}
+    print(f"square n={SQ_N} m={SQ_M} D={SQ_D} c128, the asset's cell on the card against the JAX "
+          f"package: energy {e!r} (JAX {float(case['energy'])!r}); gaps {json.dumps(jax_gap)} (tol "
+          f"{SQ_TOL:g}); {time.perf_counter() - t0:.2f} s; launches {json.dumps(d)}")
+
+    # the simple update from the JAX package's start, card against CPU
+    init = S._initial_cell
+    pipeline = {}
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        S._initial_cell = lambda m, D, d, generator, dtype, device=None: [  # noqa: E731
+            [torch.from_numpy(case["su_start"][i][j]).to(device=device, dtype=dtype) for j in range(m)]
+            for i in range(m)]
+        t0 = time.perf_counter()
+        try:
+            (cell, lams), d = _delta(K, lambda: S.simple_update(h, D=SQ_D, m=SQ_M, dts=SQ_SU_DTS,
+                                                                 sweeps_per_dt=SQ_SU_SWEEPS, device=device))
+        finally:
+            S._initial_cell = init
+        su_s = time.perf_counter() - t0
+        lam = np.array([[[lams[(o, i, j)].cpu().numpy() for j in range(SQ_M)] for i in range(SQ_M)]
+                        for o in "hv"])
+        (msgs, e, bonds), d2 = _delta(K, lambda: measured(cell))
+        if label == "card":
+            _add(counts, d)
+            _add(counts, d2)
+        pipeline[label] = {"lambda": lam, "msgs": msgs, "energy": e, "bonds": bonds,
+                           "s": time.perf_counter() - t0, "su_s": su_s, "cell": cell}
+    card, cpu = ({k: v for k, v in pipeline[x].items() if k != "cell"} for x in ("card", "cpu"))
+    cpu_gap = {"lambda": float(np.abs(card["lambda"] - cpu["lambda"]).max()),
+               "messages": max(_msg_gaps(M, card["msgs"], cpu["msgs"]).values()),
+               "energy": abs(card["energy"] - cpu["energy"]),
+               **{f"bond_{o}": max(abs(a - b) for a, b in zip(card["bonds"][o], cpu["bonds"][o]))
+                  for o in "hv"}}
+    jax_gap["su_lambda"] = float(np.abs(card["lambda"] - case["su_lambda"]).max())
+    print(f"square SU D={SQ_D} from the JAX package's start ({len(SQ_SU_DTS)} stages x "
+          f"{SQ_SU_SWEEPS} sweeps), then BP, energy and bonds: card {card['s']:.2f} s (SU "
+          f"{card['su_s']:.2f}), CPU {cpu['s']:.2f} s; energy {card['energy']!r}; card against CPU "
+          f"{json.dumps(cpu_gap)}; lambda against the JAX package {jax_gap['su_lambda']:.3e} "
+          f"(tol {SQ_TOL:g})")
+    res.update(jax_gaps=jax_gap, cpu_gaps=cpu_gap, su_card_s=card["s"], su_energy=card["energy"])
+    # the simple update's cell is fixed only up to a gauge on its bonds (each
+    # SVD's phases), which the card and the CPU pick apart; λ, energies and
+    # bond expectations do not see it, BP messages do: they are compared card
+    # against CPU on one cell
+    cell_cpu = pipeline["cpu"]["cell"]
+    (same, _), d = _delta(K, lambda: S.belief_propagation([[t.to(dev) for t in row] for row in cell_cpu],
+                                                           SQ_N, SQ_D, SQ_CHI_MSG, chi=SQ_CHI))
+    _add(counts, d)
+    cpu_gap["su_cells_messages"] = cpu_gap.pop("messages")
+    cpu_gap["messages"] = max(_msg_gaps(M, {int(s): m.sites for s, m in same.items()}, cpu["msgs"]).values())
+    print(f"square SU cell: BP on the card from the CPU's SU cell against the CPU's BP: messages "
+          f"{cpu_gap['messages']:.3e} (tol {SQ_TOL:g}); the two devices' own SU cells differ by a bond "
+          f"gauge, which moves their messages {cpu_gap['su_cells_messages']:.3e} apart")
+    held = {k: v for k, v in cpu_gap.items() if k != "su_cells_messages"}
+    if not max(list(jax_gap.values()) + list(held.values())) < SQ_TOL:
+        raise AssertionError(f"the square lattice on the card misses {SQ_TOL}: JAX {jax_gap}, CPU {cpu_gap}")
+
+    # run_square's path at D=4, each step timed with its launches
+    steps = ("simple_update", "belief_propagation", "measure_energy")
+    originals = {n: getattr(S, n) for n in steps}
+    res["run_square"] = {}
+    for name in ("complex128", "complex64"):
+        rec = {}
+
+        def timing(n):
+            def run(*a, **kw):
+                if n == "belief_propagation":
+                    kw["max_iterations"] = SQ_BP_CUT
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, d = _delta(K, lambda: originals[n](*a, **kw))
+                torch.cuda.synchronize()
+                rec[n] = {"s": time.perf_counter() - t0, "launches": d}
+                return out
+            return run
+
+        for n in steps:
+            setattr(S, n, timing(n))
+        t0 = time.perf_counter()
+        try:
+            e = run_square.main(SQ_RUN + SQ_SU_CUT + ["--dtype", name])
+        finally:
+            for n in steps:
+                setattr(S, n, originals[n])
+        wall = time.perf_counter() - t0
+        for r in rec.values():
+            _add(counts, r["launches"])
+        res["run_square"][name] = {"energy": e, "s": wall, "steps": rec}
+        print(f"run_square {' '.join(SQ_RUN)} (chi_msg 32, chi 42) {name}, cut to "
+              f"{' '.join(SQ_SU_CUT)} (default 60) and BP cut to {SQ_BP_CUT} sweeps (60): energy/site {e!r} (square AFM: Neel "
+              f"{SQ_REFS['Neel']}, exact {SQ_REFS['exact']}); {wall:.2f} s; " + "; ".join(
+                  f"{n} {r['s']:.2f} s, K1 {r['launches']['fused_tensor']} + operator form "
+                  f"{r['launches']['fused_tensor_operator']}" for n, r in rec.items()))
+        k1 = sum(r["launches"]["fused_tensor"] for r in rec.values())
+        k1_op = sum(r["launches"]["fused_tensor_operator"] for r in rec.values())
+        if not SQ_REFS["exact"] - 0.03 < e < 0 or k1 < 1 or k1_op < 1:
+            raise AssertionError(f"run_square at D=4 {name}: energy {e}, K1 {k1}, operator form {k1_op}")
+
+    # at D=3, where truncation bites, the simple update from the JAX
+    # package's start, BP and the energy against the JAX package's; then a
+    # short full-update polish that must lower the energy
+    with np.load(SQ_CASE_D3) as z:
+        case3 = dict(z)
+    t0 = time.perf_counter()
+
+    def polish():
+        chi_msg, chi = 2 * SQ_FU_D ** 2, 2 * SQ_FU_D ** 2 + 10
+        S._initial_cell = lambda m, D, d, generator, dtype, device=None: [  # noqa: E731
+            [torch.from_numpy(case3["start"][i][j]).to(device=device, dtype=dtype) for j in range(m)]
+            for i in range(m)]
+        try:
+            cell, lams = S.simple_update(h, D=SQ_FU_D, m=SQ_M, dts=SQ_FU_SU_DTS, sweeps_per_dt=SQ_FU_SU_SWEEPS,
+                                         device=dev)
+        finally:
+            S._initial_cell = init
+        msgs, err = S.belief_propagation(cell, SQ_N, SQ_FU_D, chi_msg, chi=chi, max_iterations=SQ_FU_SU_BP)
+        e_su = S.measure_energy(cell, SQ_N, SQ_FU_D, msgs, chi, chi_msg, h)
+        lam = np.array([[[lams[(o, i, j)].cpu().numpy() for j in range(SQ_M)] for i in range(SQ_M)]
+                        for o in "hv"])
+        _, e_fu, hist = FU.full_update(cell, h, n=SQ_N, dts=SQ_FU_DTS, sweeps_per_dt=1, chi=chi,
+                                       chi_msg=chi_msg, bp_iters=SQ_FU_BP, bp_tol=1e-7)
+        return lam, err, e_su, e_fu, hist
+
+    (lam, err, e_su, e_fu, hist), d = _delta(K, polish)
+    _add(counts, d)
+    d3 = {"su_lambda": (float(np.abs(lam - case3["su_lambda"]).max()), _sq_bar(case3["su_lambda_move"])),
+          "energy": (abs(e_su - float(case3["energy"])), _sq_bar(case3["energy_move"]))}
+    res["full_update"] = {"e_su": e_su, "bp_err": err, "e_fu": e_fu, "history": hist,
+                          "s": time.perf_counter() - t0, "launches": d,
+                          "against_jax": {k: {"gap": g, "tol": b} for k, (g, b) in d3.items()},
+                          "jax_run_square_D3_energy": float(case3["rs_energy"])}
+    print(f"square D={SQ_FU_D} c128 from the JAX package's start: SU {len(SQ_FU_SU_DTS)} stages x "
+          f"{SQ_FU_SU_SWEEPS} sweeps, BP (distance {err:.2e}), energy {e_su!r} (JAX {float(case3['energy'])!r}); "
+          f"against the JAX package: " + ", ".join(f"{k} {g:.3e} (tol {b:g})" for k, (g, b) in d3.items()) +
+          f"; then a full update of {len(SQ_FU_DTS)} dt stages of one sweep, BP cut to {SQ_FU_BP} sweeps: "
+          f"energy {e_su!r} -> {e_fu!r} (history {hist}); {res['full_update']['s']:.2f} s; launches "
+          f"{json.dumps(d)} (the JAX package's run_square at D=3, its default ladder from seed 0: "
+          f"{float(case3['rs_energy'])!r})")
+    if not all(g < b for g, b in d3.values()):
+        raise AssertionError(f"the square lattice at D={SQ_FU_D} misses the JAX package's values: {d3}")
+    if not e_fu < e_su:
+        raise AssertionError(f"the full update did not lower the energy: {res['full_update']}")
+
+    # one BP under gram, on K2
+    cell = square_cell_from_numpy(case["cell"], device=dev)
+    (msgs, _), d = _delta(K, lambda: _with_env({"KPBP_LINALG": "gram"}, lambda: S.belief_propagation(
+        cell, SQ_N, SQ_D, SQ_CHI_MSG, chi=SQ_CHI)))
+    _add(counts, d)
+    gap = max(_msg_gaps(M, {int(s): m.sites for s, m in msgs.items()}, want_msgs).values())
+    res["gram_bp"] = {"launches": d, "distance_to_jax": gap}
+    print(f"square BP n={SQ_N} D={SQ_D} under KPBP_LINALG=gram: launches {json.dumps(d)}; messages "
+          f"{gap:.3e} from the JAX package's (tol {SQ_TOL:g})")
+    if d["chol_inv_resident"] + d["chol_inv_blocked"] < 1 or not gap < SQ_TOL:
+        raise AssertionError(f"the gram square BP did not launch K2 or misses {SQ_TOL}: {res['gram_bp']}")
+    return res, counts
+
+
 def main() -> int:
     import torch
 
@@ -1272,7 +1767,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from kagomeperiodicbp_tpu_torch import increasing_block_measurements as IBM
     from kagomeperiodicbp_tpu_torch import measure
+    from kagomeperiodicbp_tpu_torch import run_square
     from kagomeperiodicbp_tpu_torch.algo import arbitrary as A
+    from kagomeperiodicbp_tpu_torch.algo import batched as B
     from kagomeperiodicbp_tpu_torch.algo import contraction as C
     from kagomeperiodicbp_tpu_torch.algo import edge_env as E
     from kagomeperiodicbp_tpu_torch.algo import fused as F
@@ -1291,10 +1788,29 @@ def main() -> int:
     from kagomeperiodicbp_tpu_torch.ops import mps as M
     from kagomeperiodicbp_tpu_torch.ops import pmps as P
     from kagomeperiodicbp_tpu_torch.physics import hamiltonians, pauli
+    from kagomeperiodicbp_tpu_torch.square import algo as S
+    from kagomeperiodicbp_tpu_torch.square import fullupdate as FU
 
     measure.setup_device(dev)
     with open(PIN_GOLD) as fh:
         gold = json.load(fh)
+
+    # the sweep every BP run took (BPStats.mode), printed phase by phase
+    modes = []
+    bp_run = BP.belief_propagation
+
+    def recorded(cell, messages, config, N):
+        out = bp_run(cell, messages, config, N)
+        modes.append(f"N={N} D={cell.D} {out[1].mode}")
+        return out
+
+    def took(phase):
+        seen = {m: modes.count(m) for m in dict.fromkeys(modes)}
+        print(f"BP runs of {phase} by sweep: {json.dumps(seen)}")
+        modes.clear()
+        return seen
+
+    BP.belief_propagation = recorded
 
     # -- 2. build --
     t0 = time.perf_counter()
@@ -1333,6 +1849,8 @@ def main() -> int:
           f"K1 launches {counts_default['fused_tensor']}; shifted eigh retries "
           f"{json.dumps(L.eigh_retries())}")
     gap = report_pin(res, gold, "c128 default linalg")
+    if res["bp_mode"] != "batched":
+        raise AssertionError(f"the pin measurement's BP ran {res['bp_mode']}, not the batched sweep")
 
     L.reset_eigh_retries()
     res_gram, k_seen = k2_sizes(L, lambda: _with_env(
@@ -1417,6 +1935,7 @@ def main() -> int:
         raise AssertionError(f"c64 slice differs from c128 by {d64}")
     if counts64["fused_tensor"] <= 0:
         raise AssertionError("K1 was not launched by the c64 slice run")
+    took("phases 4-5 (the pin measurements)")
 
     # -- 6. one BP sweep, N=2, D=3, χ=18, complex64 --
     cell = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex64).force_zero_rotation()
@@ -1433,6 +1952,7 @@ def main() -> int:
     print(f"BP sweep N=2 D=3 chi=18 c64: median {statistics.median(sweep_s[1:]) * 1e3:.1f} ms "
           f"over {len(sweep_s) - 1} sweeps after one warm-up; first {sweep_s[0] * 1e3:.1f} ms; "
           f"distance {float(err):.3e}")
+    sweep6 = (cell, msgs)
 
     # -- 7. where the device time of a gram sweep goes --
     profile_gram_sweep(torch, C, F, UnitCell, dev)
@@ -1455,6 +1975,7 @@ def main() -> int:
     if gram128["fused_tensor"] < 1 or gram128["chol_inv_resident"] < 1:
         raise AssertionError(f"a gram ITE update did not launch K1 and K2 resident: {gram128}")
     ite_gaps = ite_card_vs_cpu(torch, F, E, IK, edge, inputs, dev)
+    took("phase 8 (ITE)")
 
     # -- 9. single-layer swallowing at D=6 --
     t_sl = time.perf_counter()
@@ -1465,6 +1986,7 @@ def main() -> int:
                                                     UpdateEdge, hamiltonians, dev)
     single["wall_s"] = time.perf_counter() - t_sl
     print(f"single-layer phase: {single['wall_s']:.1f} s wall; launches {json.dumps(counts_sl)}")
+    took("phase 9 (single-layer)")
 
     # -- 10. the warm start on growing blocks, sandwiches, classical messages,
     #        arbitrary blocks, pmps --
@@ -1477,6 +1999,9 @@ def main() -> int:
     L.reset_eigh_retries()
     warm = {}
     warm["su_d3"], _ = su_warm_start(torch, K, SU, IBM, UnitCell, su_gold, dev)
+    warm["su_d3"]["bp_modes"] = took("phase 10.2 (the block measurements)")
+    if set(warm["su_d3"]["bp_modes"]) != {f"N={n} D=3 batched" for n in (2, 3)}:
+        raise AssertionError(f"the block measurements did not run the batched sweep: {warm['su_d3']['bp_modes']}")
     warm["su_d6"] = su_large_d(torch, SU, UnitCell, dev)
     warm["sandwich"] = sandwich_checks(torch, K, F, MS, pin_bp, inputs, dev)
     uniform = MS.measure_energies_and_observables(inputs[0], F._sites_to_msgs(inputs[1]),
@@ -1492,12 +2017,28 @@ def main() -> int:
     missing = [n for n, c in counts_ws.items() if c <= 0]
     if missing:
         raise AssertionError(f"the warm-start path launched no {missing}")
+    warm["bp_modes"] = took("phase 10.3-10.7")
 
-    # -- 11. results --
+    # -- 11. the batched six-side sweep, and the square lattice --
+    t_11 = time.perf_counter()
+    K.reset_launch_counts()
+    L.reset_eigh_retries()
+    batched, counts_b = batched_checks(torch, K, L, M, C, F, B, BlockSide, *sweep6, dev)
+    batched["wide"] = wide_batched(torch, K, L, M, C, F, B, BlockSide, UnitCell, dev)
+    batched["eigh_retries"] = L.eigh_retries()
+    K.reset_launch_counts()
+    square, counts_sq = square_checks(torch, K, L, M, S, FU, run_square, hamiltonians, dev)
+    phase11 = {"batched": batched, "square": square, "wall_s": time.perf_counter() - t_11}
+    print(f"batched and square phase: {phase11['wall_s']:.1f} s wall; launches batched "
+          f"{json.dumps(counts_b)}, square {json.dumps(counts_sq)}")
+    took("phase 11")
+
+    # -- 12. results --
     launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] + counts_sl[n] + counts_ws[n]
-                for n in counts_default}
+                + counts_b[n] + counts_sq[n] for n in counts_default}
     by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n],
-                   "single_layer": counts_sl[n], "warm_start": counts_ws[n]}
+                   "single_layer": counts_sl[n], "warm_start": counts_ws[n],
+                   "batched_sweep": counts_b[n], "square": counts_sq[n]}
                for n in counts_default}
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     k1 = ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82")
@@ -1515,6 +2056,7 @@ def main() -> int:
                               "full_ite": ite_full, "launches": counts_ite}}))
     print(json.dumps({"single_layer": single}))
     print(json.dumps({"warm_start": {"fused_tensor_operator_by_D": k1_op_cases, **warm}}))
+    print(json.dumps({"batched_and_square": phase11}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,12 +7,14 @@ are computed synchronously from the current ones, and the wrap is
 ``in[S.opposite()] = reverse(out[S])``. Each iteration reads one number back
 to the host: the mean message distance that decides termination.
 
-The sweep is the per-side one (``fused.bp_iteration``), double-layer or,
-as the JAX package chooses (``use_single_layer``), single-layer: on by
-itself from D=6, steered by ``KPBP_SINGLE_LAYER=0/1`` where the config
-leaves it to auto. The six-side batched program is not ported:
-``batched=True`` (or ``KPBP_BP_BATCHED=1``) raises where the JAX package
-would run it.
+The sweep is chosen as the JAX package chooses it (``bp_mode``):
+single-layer (``fused.bp_iteration(single=True)``), on by itself from D=6;
+below it the batched sweep (``batched.bp_iteration_batched``: two vmapped
+calls, one per symmetry class of sides); or, where the config or the
+environment asks, the per-side double-layer sweep (``fused.bp_iteration``).
+``KPBP_SINGLE_LAYER=0/1`` and ``KPBP_BP_BATCHED=0/1`` steer only what the
+config leaves to auto. A per-site view (``algo/arbitrary``) has no rotation
+symmetry and is swept per side.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ..networks.unit_cell import UnitCell
 from ..ops import mps as mpslib
 from ..ops.linalg import _real_dtype
 from ..ops.mps import MPS
+from . import batched as B
 from . import contraction as C
 from . import fused as F
 
@@ -52,7 +55,8 @@ class BPConfig:
     init_model: str = "uniform"         # 'uniform' | 'random' | 'uniform-classic' | 'random-classic'
     seed: int = 0
     dtype: object = None                # torch dtype; default from the unit cell
-    # None = the per-side sweep; the six-side batched program is not ported
+    # the batched sweep (two vmapped calls of three sides); None = auto: on
+    # wherever the sweep is not single-layer
     batched: Optional[bool] = None
     # single-layer ket swallowing (peak swallow memory χ²·d·D⁴ instead of
     # χ²·D⁶); None = auto: on for D ≥ 6, off below
@@ -86,6 +90,7 @@ class BPStats:
     final_config: Optional[BPConfig] = None
     duration: float = 0.0
     error_history: list = field(default_factory=list)
+    mode: str = ""                      # the sweep that ran: bp_mode's answer
 
 
 def hermitize_message(m: MPS, D: int, chi: int) -> MPS:
@@ -108,23 +113,28 @@ def _profile_of(m: MPS, chi: int, D: int) -> list:
     return [min(chi, p ** (k + 1), p ** (n - 1 - k)) for k in range(n - 1)]
 
 
-def use_single_layer(config: BPConfig, D: int) -> bool:
-    """Whether BP swallows single-layer, as the JAX package decides: the
-    config's choice, or auto (None) on from D=6 unless batched=True, where
-    KPBP_SINGLE_LAYER=0/1 overrides auto only. Raises NotImplementedError
-    where the JAX package would run the six-side batched program (an
-    explicit batched=True, or KPBP_BP_BATCHED=1 with batched left to auto,
-    on a double-layer run)."""
+def bp_mode(config: BPConfig, D: int) -> str:
+    """The sweep BP runs at bond dimension D, as the JAX package decides
+    (``kagomeperiodicbp_tpu/algo/bp.py``, off its TPU): "single" (the
+    config's choice, or auto from D=6 unless batched=True), else "batched"
+    (the config's choice, or auto), else "double" (per side).
+    KPBP_SINGLE_LAYER=0/1 and KPBP_BP_BATCHED=0/1 override only what the
+    config leaves to auto (None), and single-layer wins over batched."""
     single = config.single_layer
     if single is None:
         single = D >= 6 and config.batched is not True
-        env_single = os.environ.get("KPBP_SINGLE_LAYER")
-        if env_single in ("0", "1"):
-            single = env_single == "1"
-    if not single and (config.batched or (config.batched is None
-                                          and os.environ.get("KPBP_BP_BATCHED") == "1")):
-        raise NotImplementedError("the six-side batched BP program is not ported yet")
-    return single
+    batched = config.batched
+    if batched is None:
+        batched = not single
+    env_single = os.environ.get("KPBP_SINGLE_LAYER")
+    if config.single_layer is None and env_single in ("0", "1"):
+        single = env_single == "1"
+    env_batched = os.environ.get("KPBP_BP_BATCHED")
+    if config.batched is None and env_batched in ("0", "1"):
+        batched = env_batched == "1" and not single
+    if single:
+        return "single"
+    return "batched" if batched else "double"
 
 
 def belief_propagation(cell: UnitCell, messages: Optional[MessageDict], config: BPConfig,
@@ -132,7 +142,12 @@ def belief_propagation(cell: UnitCell, messages: Optional[MessageDict], config: 
     """Iterate to the message fixed point; keep the minimum-error messages."""
     t0 = time.time()
     D = cell.D
-    single = use_single_layer(config, D)
+    mode = bp_mode(config, D)
+    per_site = len(C.site_kets(cell)) != 3
+    if mode == "batched" and per_site:
+        if config.batched:
+            raise ValueError("batched=True: the batched sweep needs a unit cell, not a per-site view")
+        mode = "double"
     chi_msg = config.trunc_dim
     chi = config.chi_bubble
     dtype = config.dtype or cell.A.dtype
@@ -150,10 +165,13 @@ def belief_propagation(cell: UnitCell, messages: Optional[MessageDict], config: 
             dtype=dtype, device=cell.A.device,
         )
 
-    stats = BPStats(final_config=config)
+    stats = BPStats(final_config=config, mode=mode)
     # single-layer swallowing consumes the raw kets, double-layer one K1 launch's fused tensors
-    tensors = C.site_kets(cell) if single else C.fused_cells(cell)
-    step_fn = F.bp_iteration(N, D, chi, chi_msg, config.damping, single=single)
+    tensors = C.site_kets(cell) if mode == "single" else C.fused_cells(cell)
+    if mode == "batched":
+        step_fn = B.bp_iteration_batched(N, D, chi, chi_msg, config.damping)
+    else:
+        step_fn = F.bp_iteration(N, D, chi, chi_msg, config.damping, single=mode == "single")
     msg_sites = F._msgs_to_sites(messages)
     best_err, best_sites = float("inf"), msg_sites
     prev_err = float("inf")

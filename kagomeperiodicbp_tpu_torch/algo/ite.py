@@ -342,6 +342,7 @@ def full_ite(
     measurement_chi_factor: float = 1.0,
     measure_dtype=None,
     progress=None,
+    plots=None,
     device="cuda",
 ) -> Tuple[float, UnitCell, ITETracker]:
     """The main ITE loop (reference: main.py:704).
@@ -352,7 +353,8 @@ def full_ite(
     noise. Without a card it raises (``measure.setup_device``).
 
     `progress`: optional utils.progress.ProgressHierarchy for the reference's
-    leveled progress bars (visuals.py:31-46)."""
+    leveled progress bars (visuals.py:31-46). `plots`: optional
+    visualizations.ITEPlots, updated after every measured segment."""
     device = setup_device(device)
     log = logger or logging.getLogger("ite")
     rng = random.Random(config.seed)
@@ -491,6 +493,8 @@ def full_ite(
                     if config.check_converges and no_improve >= config.convergence_check_length:
                         skip_until_new_dt = True
                 tracker.log_segment(dt, cell_m, meas, seg)
+                if plots is not None:
+                    plots.update(tracker)
                 if save_best_store:
                     from ..utils.best_store import save_if_best
 

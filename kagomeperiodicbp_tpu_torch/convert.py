@@ -3,14 +3,15 @@
 The dict of ``unit_cell_from_numpy`` is the one the JAX package's
 ``UnitCell.save`` pickles ({"A", "B", "C", "rotated"}), and a message set is
 {side_int: [site arrays]}, so a test can hand the same numpy cell and
-messages to both packages; so are a simple update's λs ({(f1, f2): array})
-and an arbitrary block's per-site tensors. A saved cell or best-store file of either package
+messages to both packages; so are a simple update's λs ({(f1, f2): array}),
+an arbitrary block's per-site tensors and a square-lattice cell (an m×m
+list of [d, D,D,D,D] arrays, legs [d, U, L, D, R]) with its messages. A saved cell or best-store file of either package
 reads with ``UnitCell.load``; a JAX ``ITETracker`` checkpoint with
 ``tracker_from_jax_checkpoint``. Neither imports JAX or its package.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ from .enums import UpdateMode
 from .lattices import BlockSide
 from .networks.unit_cell import FLAVORS, NumpyUnpickler, UnitCell
 from .ops.mps import MPS, from_sites
+from .square.lattice import SquareSide
 
 _JAX_PACKAGE = "kagomeperiodicbp_tpu"
 
@@ -81,10 +83,24 @@ def arbitrary_tn_from_numpy(tensors: Sequence[np.ndarray], N: int, device=None,
     return ArbitraryKagomeTN([_tensor(t, device, dtype) for t in tensors], N)
 
 
+def square_cell_from_numpy(cell: Sequence[Sequence[np.ndarray]], device=None,
+                           dtype=None) -> List[List[torch.Tensor]]:
+    """A square-lattice cell: m×m kets [d, U, L, D, R]."""
+    return [[_tensor(t, device, dtype) for t in row] for row in cell]
+
+
+def square_messages_from_numpy(sites: Mapping[int, Sequence[np.ndarray]], device=None,
+                               dtype=None) -> Dict[SquareSide, MPS]:
+    """Square-lattice messages with zero logscale from {side_int: [site arrays]}."""
+    return {SquareSide(int(s)): from_sites([_tensor(a, device, dtype) for a in ss])
+            for s, ss in sites.items()}
+
+
 def to_numpy(x):
     """Tensor → ndarray; UnitCell → the save dict; MPS → list of site
     arrays; a message dict → {side_int: [site arrays]}; λs → {(f1, f2):
-    array}; an arbitrary block → its list of per-site arrays."""
+    array}; an arbitrary block → its list of per-site arrays; a square cell
+    (a list of rows) → a list of rows of arrays."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().resolve_conj().numpy()
     if isinstance(x, UnitCell):
@@ -93,6 +109,8 @@ def to_numpy(x):
         return [to_numpy(s) for s in x.sites]
     if isinstance(x, ArbitraryKagomeTN):
         return [to_numpy(t) for t in x.tensors]
+    if isinstance(x, (list, tuple)):
+        return [to_numpy(v) for v in x]
     if isinstance(x, Mapping):
         return {(tuple(int(i) for i in k) if isinstance(k, tuple) else int(k)): to_numpy(v)
                 for k, v in x.items()}

@@ -62,6 +62,7 @@ def production_measurement(cell_path: str, N: int = 2, device="cuda",
         "bp_iterations": stats.iterations,
         "bp_attempts": stats.attempts,
         "bp_error": stats.final_error,
+        "bp_mode": stats.mode,
         "seconds": time.perf_counter() - t0,
     }
 

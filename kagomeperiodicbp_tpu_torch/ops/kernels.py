@@ -24,6 +24,8 @@ so the build takes seconds). K1's wrappers count their launches in
 ``FUSED_TENSOR.launches`` (ket = bra) and ``FUSED_TENSOR_OPERATOR.launches``
 (a separate bra), ``chol_inv_cuda`` in those of the variant it ran
 (``CHOL_INV_VARIANTS``); ``launch_counts`` reads them by kernel name.
+``chol_inv`` is the operator ``kpbp::chol_inv`` of ``torch.library``, with a
+vmap rule that hands K2 all mapped copies in one call.
 """
 from __future__ import annotations
 
@@ -381,10 +383,35 @@ CHOL_INV_VARIANTS = {"resident": SimpleNamespace(launches=0),
                      "blocked": SimpleNamespace(launches=0)}
 
 
-def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+@torch.library.custom_op("kpbp::chol_inv", mutates_args=())
+def _chol_inv_op(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 as one operator of PyTorch's, so that ``torch.func.vmap`` can run
+    it: the plain version on the CPU, the kernel on the card."""
     if g.device.type == "cpu":
         return chol_inv_ref(g)
     return chol_inv_cuda(g.contiguous())
+
+
+@_chol_inv_op.register_vmap
+def _chol_inv_vmap(info, in_dims, g):
+    """Under vmap: the mapped dimension moves to the front and folds, with
+    any batch g already has, into K2's own batch axis, so the whole map is
+    one call of the operator (one C call on the card, on the [batch, k, k]
+    path)."""
+    (bdim,) = in_dims
+    if bdim is None:
+        return _chol_inv_op(g), (None, None)
+    g = g.movedim(bdim, 0)
+    k = g.shape[-1]
+    l, w = _chol_inv_op(g.reshape(-1, k, k))
+    return (l.reshape(g.shape), w.reshape(g.shape)), (0, 0)
+
+
+def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, W = L⁻¹) of a Hermitian PSD g [..., k, k]: the plain version on
+    the CPU, K2 on the card; inside ``torch.func.vmap`` the mapped copies go
+    to K2 together, in one call."""
+    return _chol_inv_op(g)
 
 
 # ------------------------------ counters ----------------------------------

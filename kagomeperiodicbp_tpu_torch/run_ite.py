@@ -6,8 +6,8 @@
     python -m kagomeperiodicbp_tpu_torch.run_ite -D 2 -N 2 --steps 2 --device cpu
 
 It runs on the card unless ``--device cpu`` is given, and raises without one.
-Not ported yet, and refused with ``NotImplementedError``: ``--live-plots``
-(the visualisation module).
+``--live-plots`` writes the convergence dashboards (three PNGs) under
+``--out`` after every measured segment.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="block size for measurements (default: N+1, reference convention)")
     p.add_argument("--measure-chi-factor", type=float, default=2.0)
     p.add_argument("--live-plots", action="store_true",
-                   help="convergence dashboard (not ported)")
+                   help="convergence dashboards, written under --out")
     p.add_argument("--field-start", type=float, default=1e-2,
                    help="AFM-T initial annealing field (reference: 1e-2)")
     p.add_argument("--fixed-edge-order", action="store_true",
@@ -146,10 +146,17 @@ def initial_cell(args, dtype: torch.dtype, device: torch.device, log) -> UnitCel
     return UnitCell.load(args.cell, device=device)
 
 
+def _make_plots(args, ham):
+    if not args.live_plots:
+        return None
+    from .visualizations import ITEPlots
+
+    return ITEPlots(active=True, out_path=os.path.join(args.out, "ite_progress.png"),
+                    reference_energy=getattr(ham, "reference", None))
+
+
 def main(argv=None) -> float:
     args = parse_args(argv)
-    if args.live_plots:
-        raise NotImplementedError("--live-plots: the visualisation module is not ported yet")
     device = setup_device(args.device)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
@@ -208,6 +215,7 @@ def main(argv=None) -> float:
             measure_every=args.measure_every,
             save_best_store=not args.no_best_store,
             progress=ProgressHierarchy(args.progress_bars),
+            plots=_make_plots(args, ham),
             device=device,
         )
     finally:

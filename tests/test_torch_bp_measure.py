@@ -3,7 +3,8 @@ oracle, at N=2, D=2:
 
 * BP from the same numpy cell and uniform messages reaches the same fixed
   point in the same number of iterations as JAX's per-side sweep
-  (``batched=False``, the one program structure the port has);
+  (``batched=False``, which compiles in seconds here; the port runs its
+  default, the batched sweep, which gives the same messages);
 * the six edge RDMs match the exact oracle (ported from test_edge_env.py);
 * the slice as a whole — the port's ``production_measurement`` — gives the
   six edge energies of the JAX pipeline it replaces, to 1e-9.

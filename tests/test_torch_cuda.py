@@ -462,3 +462,58 @@ def test_single_layer_message_on_card(cuda, monkeypatch, toward):
         cpu = C.outgoing_message_single(cell, msgs, 2, 3, 12, 12, toward)
         card = mpslib.MPS(tuple(x.cpu() for x in card.sites), card.logscale.cpu())
         assert float(mpslib.distance(card, cpu)) < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["c64", "c128"])
+@pytest.mark.parametrize("k", [1, 9, 24, 36, 81, 130])
+def test_chol_inv_under_vmap_is_one_launch(cuda, k, dtype):
+    """K2 under torch.func.vmap over 3 grams (both variants by k): one call
+    of the [3, k, k] path, counted once, each matrix against its plain
+    version."""
+    g = _gram(k, DTYPES[dtype], batch=(3,)).to(cuda)
+    variant = K.chol_inv_plan(k, g.dtype).variant
+    before = K.launch_counts()
+    l, w = torch.func.vmap(K.chol_inv)(g)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "fused_tensor": 0, "fused_tensor_operator": 0, "chol_inv_resident": int(variant == "resident"),
+        "chol_inv_blocked": int(variant == "blocked")}
+    for b in range(3):
+        l_ref, w_ref = K.chol_inv_ref(g[b])
+        assert ((l[b] - l_ref).abs().max() / l_ref.abs().max()).item() < K2_RTOL[dtype]
+        assert ((w[b] - w_ref).abs().max() / w_ref.abs().max()).item() < K2_RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linalg", ["default", "gram"])
+def test_batched_sweep_on_card_matches_per_side(cuda, monkeypatch, linalg):
+    """One batched sweep at N=2, D=3, χ=12 on the card against the per-side
+    sweep on the card, c128, by message distance; under gram it launches
+    K2 a third as often."""
+    from kagomeperiodicbp_tpu_torch.algo import batched as B
+
+    if linalg == "gram":
+        monkeypatch.setenv("KPBP_LINALG", "gram")
+    cell = UnitCell.random(2, 3, torch.Generator().manual_seed(3)).to_device(cuda)
+    msgs = C.initial_messages(2, 3, 12, model="random", generator=torch.Generator().manual_seed(4),
+                              device=cuda)
+    fused, sites = C.fused_cells(cell), F._msgs_to_sites(msgs)
+    counts = []
+    out = []
+    for sweep in (F.bp_iteration(2, 3, 12, 12, None), B.bp_iteration_batched(2, 3, 12, 12, None)):
+        K.reset_launch_counts()
+        out.append(sweep(fused, sites))
+        torch.cuda.synchronize()
+        counts.append(K.launch_counts())
+    (a, ea), (b, eb) = out
+    for s in a:
+        assert float(mpslib.distance(mpslib.from_sites(a[s]), mpslib.from_sites(b[s]))) < 1e-10
+    assert abs(float(ea) - float(eb)) < 1e-10
+    k2 = ("chol_inv_resident", "chol_inv_blocked")
+    if linalg == "gram":
+        assert sum(counts[0][n] for n in k2) > 0
+        assert all(counts[0][n] == 3 * counts[1][n] for n in k2)
+    else:
+        assert all(counts[0][n] == counts[1][n] == 0 for n in k2)

@@ -38,6 +38,7 @@ from kagomeperiodicbp_tpu.ops import ite_kernels as JK
 from kagomeperiodicbp_tpu.ops import linalg as JL
 from kagomeperiodicbp_tpu.utils import best_store as jax_best_store
 from kagomeperiodicbp_tpu_torch import run_ite
+from kagomeperiodicbp_tpu_torch.visualizations import ITEPlots
 from kagomeperiodicbp_tpu_torch.algo import contraction as C
 from kagomeperiodicbp_tpu_torch.algo import edge_env as E
 from kagomeperiodicbp_tpu_torch.algo import fused as F
@@ -622,6 +623,27 @@ def test_full_ite_and_run_ite_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_ite.main(["-D", "2", "--steps", "1", "--out", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_run_ite_live_plots_write_the_dashboards(monkeypatch, tmp_path):
+    """run_ite --live-plots on the CPU (one segment, measured at N=2, Agg
+    backend): full_ite hands the tracker to ITEPlots after the measured
+    segment, which writes its three figures under --out."""
+    monkeypatch.setenv("MPLBACKEND", "Agg")
+    updates = []
+    update = ITEPlots.update
+
+    def counted(self, tracker):
+        updates.append(len(tracker.energies))
+        return update(self, tracker)
+
+    monkeypatch.setattr(ITEPlots, "update", counted)
+    e = run_ite.main(["-D", "2", "-N", "2", "--steps", "1", "--mode-reps", "1", "--device", "cpu",
+                      "--out", str(tmp_path), "--no-best-store", "--live-plots", "--measure-n", "2"])
+    assert updates == [1] and np.isfinite(e)
+    for name in ("ite_progress.png", "ite_progress_health.png", "ite_progress_cores.png"):
+        path = tmp_path / name
+        assert path.stat().st_size > 1000 and path.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 def _reduced_env_rj_inverse(t1, t2, env):

@@ -9,7 +9,8 @@ with numpy from a seed:
   the JAX functions they replace; the scalar plan and BP against the
   port's double-layer path, which other files hold to the JAX package;
 * the BP mode choice against the JAX package's, for every D and every
-  ``KPBP_SINGLE_LAYER`` value, without running a D=6 contraction.
+  ``KPBP_SINGLE_LAYER`` and ``KPBP_BP_BATCHED`` value, without running a
+  D=6 contraction.
 
 jax.random streams cannot be drawn in torch: where the sketch is truncated,
 the JAX package's factors, drawn by tools/make_sketch_case.py, are handed to
@@ -38,7 +39,9 @@ from kagomeperiodicbp_tpu.ops import contract as JK
 from kagomeperiodicbp_tpu.ops import ite_kernels as JIK
 from kagomeperiodicbp_tpu.ops import mps as jmps
 from kagomeperiodicbp_tpu.ops.contract import execute_plan as jax_execute_plan
+from kagomeperiodicbp_tpu_torch.algo import batched as B
 from kagomeperiodicbp_tpu_torch.algo import bp as BP
+from kagomeperiodicbp_tpu_torch.algo.arbitrary import ArbitraryKagomeTN
 from kagomeperiodicbp_tpu_torch.algo import contraction as C
 from kagomeperiodicbp_tpu_torch.algo import edge_env as E
 from kagomeperiodicbp_tpu_torch.algo import fused as F
@@ -478,11 +481,10 @@ def _jax_choice(monkeypatch, D, cfg):
 @pytest.mark.parametrize("single_layer", [None, True, False])
 @pytest.mark.parametrize("batched", [None, False, True])
 def test_mode_choice_matches_jax(monkeypatch, env, single_layer, batched):
-    """For D = 2…8, single-layer or not as the JAX package picks (on by
-    itself from D=6; KPBP_SINGLE_LAYER=0/1 steering only single_layer=None);
-    the port raises exactly where the JAX package would run the six-side
-    batched program (it runs its per-side sweep where the JAX package's
-    batched default applies, the same math)."""
+    """For D = 2…8, the port picks the sweep the JAX package picks:
+    single-layer (on by itself from D=6; KPBP_SINGLE_LAYER=0/1 steering only
+    single_layer=None), the batched sweep (auto wherever the sweep is not
+    single-layer), or the per-side double-layer sweep."""
     monkeypatch.delenv("KPBP_BP_BATCHED", raising=False)
     if env is None:
         monkeypatch.delenv("KPBP_SINGLE_LAYER", raising=False)
@@ -491,35 +493,64 @@ def test_mode_choice_matches_jax(monkeypatch, env, single_layer, batched):
     for D in range(2, 9):
         want = _jax_choice(monkeypatch, D, JBP.BPConfig(single_layer=single_layer, batched=batched))
         cfg = BP.BPConfig(single_layer=single_layer, batched=batched)
-        if want == "batched" and batched is True:
-            with pytest.raises(NotImplementedError):
-                BP.use_single_layer(cfg, D)
-        else:
-            assert BP.use_single_layer(cfg, D) == (want == "single"), (D, want)
+        assert BP.bp_mode(cfg, D) == want, (D, want)
+
+
+@pytest.mark.parametrize("env_single", [None, "0", "1"])
+@pytest.mark.parametrize("env_batched", ["0", "1", "yes"])
+def test_batched_env_steers_auto_as_jax(monkeypatch, env_single, env_batched):
+    """KPBP_BP_BATCHED=0/1 steers only batched=None, and single-layer wins
+    over it, in the port as in the JAX package (D = 3 and 6)."""
+    monkeypatch.setenv("KPBP_BP_BATCHED", env_batched)
+    if env_single is None:
+        monkeypatch.delenv("KPBP_SINGLE_LAYER", raising=False)
+    else:
+        monkeypatch.setenv("KPBP_SINGLE_LAYER", env_single)
+    for D in (3, 6):
+        for batched in (None, False, True):
+            want = _jax_choice(monkeypatch, D, JBP.BPConfig(batched=batched))
+            assert BP.bp_mode(BP.BPConfig(batched=batched), D) == want, (D, batched, want)
 
 
 def test_bp_runs_the_sweep_the_mode_choice_picks(monkeypatch):
     """belief_propagation hands the sweep the raw kets with single=True at
-    D ≥ 6 and the fused tensors below; batched=True raises. No contraction
-    runs."""
+    D ≥ 6 and the fused tensors below, to the batched sweep by default and
+    with batched=True, to the per-side one with batched=False; a per-site
+    view (no rotation symmetry) goes per side, and batched=True on one
+    raises. No contraction runs."""
     seen = []
 
     def fake(N, D, chi, chi_msg, damping, single=False):
         def run(tensors, msg_sites):
-            seen.append((D, single, tensors))
+            seen.append((D, "single" if single else "double", tensors))
+            raise _Chose()
+        return run
+
+    def fake_batched(N, D, chi, chi_msg, damping):
+        def run(tensors, msg_sites):
+            seen.append((D, "batched", tensors))
             raise _Chose()
         return run
 
     monkeypatch.setattr(F, "bp_iteration", fake)
+    monkeypatch.setattr(B, "bp_iteration_batched", fake_batched)
     monkeypatch.setattr(C, "fused_cells", lambda cell: "fused")
     monkeypatch.setattr(C, "initial_messages", lambda *a, **k: {})
     monkeypatch.delenv("KPBP_SINGLE_LAYER", raising=False)
+    monkeypatch.delenv("KPBP_BP_BATCHED", raising=False)
     for D in (5, 6):
         cell = unit_cell_from_numpy(numpy_cell(D, 0))
         with pytest.raises(_Chose):
             BP.belief_propagation(cell, None, BP.BPConfig(), 2)
-        with pytest.raises(NotImplementedError):
-            BP.belief_propagation(cell, None, BP.BPConfig(batched=True), 2)
-    (d5, s5, t5), (d6, s6, t6) = seen
-    assert (d5, s5, t5) == (5, False, "fused")
-    assert d6 == 6 and s6 and isinstance(t6, tuple) and len(t6) == 3
+    for batched in (True, False):
+        with pytest.raises(_Chose):
+            BP.belief_propagation(cell, None, BP.BPConfig(batched=batched, single_layer=False), 2)
+    view = ArbitraryKagomeTN.from_unit_cell(unit_cell_from_numpy(numpy_cell(2, 0)), 2).as_cell_view()
+    with pytest.raises(_Chose):
+        BP.belief_propagation(view, None, BP.BPConfig(), 2)
+    with pytest.raises(ValueError):
+        BP.belief_propagation(view, None, BP.BPConfig(batched=True), 2)
+    (d5, m5, t5), (d6, m6, t6), (_, m_true, _), (_, m_false, _), (_, m_view, _) = seen
+    assert (d5, m5, t5) == (5, "batched", "fused")
+    assert d6 == 6 and m6 == "single" and isinstance(t6, tuple) and len(t6) == 3
+    assert (m_true, m_false, m_view) == ("batched", "double", "double")

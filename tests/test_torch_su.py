@@ -253,15 +253,23 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-print(json.dumps({"modules": len(names),
+print(json.dumps({"modules": names,
                   "imported": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                                     or m.split(".")[0] == "kagomeperiodicbp_tpu")}))
+                                     or m.split(".")[0] == "kagomeperiodicbp_tpu"),
+                  "matplotlib": "matplotlib" in sys.modules}))
 """
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port, the batched sweep, the square lattice,
+    run_square and the plots among them, and chip_smoke.py import in a
+    fresh process without JAX or the JAX package, and without matplotlib
+    (the plots import it when they draw)."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
-    assert got["modules"] > 30 and got["imported"] == []
+    pkg = "kagomeperiodicbp_tpu_torch."
+    assert {pkg + m for m in ("algo.batched", "square", "square.lattice", "square.algo",
+                              "square.fullupdate", "run_square", "visualizations.plots")} <= set(got["modules"])
+    assert len(got["modules"]) > 30 and got["imported"] == [] and not got["matplotlib"]

@@ -18,9 +18,26 @@ the JAX package and its PyTorch port, complex128 unless stated:
    entry (the complex64 rounding scale), so the gap's spread shows beside
    its value.
 
+3. ``batched`` — the batched sweep's limits: (a) the JAX package's
+   ``ArbitraryKagomeTN.measure`` of the 21 independent kets of
+   tests/assets/warm_start_D2.npz with its per-side BP program
+   (KPBP_BP_BATCHED=0) and with the batched one (=1), whose rotation
+   identity holds for a unit cell only; (b) port sweeps at N=2, D=4, χ=32
+   from a seeded random cell and from uniform, random (product) or dense
+   messages (every entry drawn): the
+   first sweep batched against per-side with the randomized SVD and with
+   exact SVDs, the per-side sweep against itself on a cell moved by 1e-15
+   of each entry, and a second sweep, batched and per-side from the first
+   batched sweep's messages, against each other beside its own move.
+
+4. ``square`` — ``run_square -D 3 --device cpu`` (its default ladder and
+   BP) in the port from the JAX package's seed-0 start, against the JAX
+   package's run of the same steps in tests/assets/square_D3.npz
+   (``rs_energy``), beside the square AFM's Néel and exact energies.
+
 Prints one JSON line per part.
 
-Usage: python tools/torch_cpu_checks.py [sketch|c64|all] [NUDGES]
+Usage: python tools/torch_cpu_checks.py [sketch|c64|batched|square|all] [NUDGES]
 """
 import json
 import os
@@ -120,10 +137,91 @@ def c64_gap(nudges: int) -> dict:
     return {"pin": rows[0], "nudged": rows[1:]}
 
 
+def batched() -> dict:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from kagomeperiodicbp_tpu.algo import arbitrary as JA
+    from kagomeperiodicbp_tpu.algo.bp import BPConfig as JBPConfig
+    from kagomeperiodicbp_tpu.physics import hamiltonians
+    from kagomeperiodicbp_tpu_torch.algo import batched as B
+    from kagomeperiodicbp_tpu_torch.algo import contraction as C
+    from kagomeperiodicbp_tpu_torch.algo import fused as F
+    from kagomeperiodicbp_tpu_torch.networks.unit_cell import UnitCell
+    from kagomeperiodicbp_tpu_torch.ops import linalg as L
+    from kagomeperiodicbp_tpu_torch.ops import mps as M
+
+    with np.load(os.path.join(ROOT, "tests", "assets", "warm_start_D2.npz")) as z:
+        case = dict(z)
+    kets = [jnp.asarray(t) for t in case["arb_per_site"]]
+    cfg = JBPConfig(trunc_dim=8, max_iterations=30, msg_diff_terminate=1e-11)
+    per_site = {"asset_mean_energy": float(case["arb_per_site_mean"])}
+    for env in ("0", "1"):
+        os.environ["KPBP_BP_BATCHED"] = env
+        meas = JA.ArbitraryKagomeTN(kets, N).measure(hamiltonians.heisenberg_afm(), bp_config=cfg, chi=18)
+        per_site["per_side" if env == "0" else "batched"] = meas.mean_energy
+    os.environ.pop("KPBP_BP_BATCHED")
+
+    d, chi = 4, 32
+    cell = UnitCell.random(2, d, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(9)
+    moved = cell._map(lambda t: t + 1e-15 * t.abs().max() * torch.randn(t.shape, generator=gen,
+                                                                       dtype=t.real.dtype))
+    sweep = {"per_side": F.bp_iteration(N, d, chi, chi, None),
+             "batched": B.bp_iteration_batched(N, d, chi, chi, None)}
+
+    def gap(a, b):
+        return max(float(M.distance(M.from_sites(a[s]), M.from_sites(b[s]))) for s in a)
+
+    def dense():
+        """Every entry of the padded profile drawn (as chip_smoke.py's D=5 check does)."""
+        gen = torch.Generator().manual_seed(6)
+        profile = F._msgs_to_sites(C.initial_messages(N, d, chi))
+        return {s: tuple(torch.complex(*(torch.randn(x.shape, generator=gen, dtype=torch.float64)
+                                         for _ in range(2))) for x in ss) for s, ss in profile.items()}
+
+    rsvd = {}
+    for model in ("uniform", "random", "dense"):
+        msgs = dense() if model == "dense" else F._msgs_to_sites(C.initial_messages(
+            N, d, chi, model=model, generator=torch.Generator().manual_seed(6)))
+        run = {k: f(C.fused_cells(cell), msgs)[0] for k, f in sweep.items()}
+        second = {k: f(C.fused_cells(cell), run["batched"]) for k, f in sweep.items()}
+        r = {"batched_vs_per_side": gap(run["batched"], run["per_side"]),
+             "per_side_moved_by_1e-15": gap(run["per_side"],
+                                            sweep["per_side"](C.fused_cells(moved), msgs)[0]),
+             "second_sweep_batched_vs_per_side": gap(second["batched"][0], second["per_side"][0]),
+             "second_sweep_mean_distance": float(second["per_side"][1])}
+        min_dim = L.RSVD_MIN_DIM
+        L.RSVD_MIN_DIM = 10 ** 9
+        try:
+            exact = {k: f(C.fused_cells(cell), msgs)[0] for k, f in sweep.items()}
+        finally:
+            L.RSVD_MIN_DIM = min_dim
+        r["exact_svd_batched_vs_per_side"] = gap(exact["batched"], exact["per_side"])
+        rsvd[f"{model}_messages"] = r
+    return {"jax_per_site_block": per_site, "port_D4_chi32": rsvd}
+
+
+def square() -> dict:
+    import numpy as np
+    import torch
+
+    from kagomeperiodicbp_tpu_torch import run_square
+    from kagomeperiodicbp_tpu_torch.square import algo as S
+
+    with np.load(os.path.join(ROOT, "tests", "assets", "square_D3.npz")) as z:
+        start, want = z["start"], float(z["rs_energy"])
+    S._initial_cell = lambda m, D, d, generator, dtype, device=None: [  # noqa: E731
+        [torch.from_numpy(start[i][j]).to(dtype) for j in range(m)] for i in range(m)]
+    e = run_square.main(["-D", "3", "-m", "2", "-n", "4", "--device", "cpu"])
+    return {"D3_energy": {"port": e, "jax": want, "gap": abs(e - want)}, "neel": -0.5, "exact": -0.6694}
+
+
 def main() -> None:
     part = sys.argv[1] if len(sys.argv) > 1 else "all"
     nudges = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    if part not in ("sketch", "c64", "all"):
+    if part not in ("sketch", "c64", "batched", "square", "all"):
         raise SystemExit(__doc__)
     import jax
 
@@ -136,6 +234,10 @@ def main() -> None:
         print(json.dumps({"sketch_quality": sketch()}))
     if part in ("c64", "all"):
         print(json.dumps({"c64_gap": c64_gap(nudges)}))
+    if part in ("batched", "all"):
+        print(json.dumps({"batched": batched()}))
+    if part in ("square", "all"):
+        print(json.dumps({"square": square()}))
 
 
 if __name__ == "__main__":
