@@ -87,11 +87,27 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    the energy against its values (tests/assets/square_D3.npz), then a
    full-update polish that must lower the energy; one square
    BP under KPBP_LINALG=gram, on K2;
-12. a JSON line with K1's cases by D, one with the ITE numbers, one with
+12. the distribution layer (parallel/*), every group's ranks sharing
+   cuda:0 over gloo (parallel/launch prints the backend and each rank's
+   device): the side-sharded sweep on 3 ranks (N=2, D=3, χ=18, the pin
+   cell and phase 6's messages) against the batched sweep in this process
+   in complex128 and complex64, both timed; on 6 ranks (dp=2, side=3) the
+   dryrun_multichip's complex64 and complex128 passes, then the multichain
+   ITE step at phase 8's size under KPBP_LINALG=gram (the pin cell and a
+   numpy-drawn D=3 cell), each chain's energy held in complex128 to the
+   same step in this process, with K1 and K2 launches per rank; one
+   single-layer per-side call at phase 9's size (D=6, χ 72/82, c128) with
+   its blob rows split over 2 ranks against the unsharded call on the pin
+   cell padded to D=6, held with the sketch at full rank, printed at the
+   default rank, with each rank's partitioned swallows and rows; run_sweep of bp_worker over 4 points with
+   one worker and then four on the card, every point's result the same,
+   wall times and points per second; the complex64 sweep of the QR repair
+   (N=2, D=2, χ 8/12) per side and batched against complex128;
+13. a JSON line with K1's cases by D, one with the ITE numbers, one with
    the single-layer numbers, one with the warm-start numbers, one with
-   phase 11's, then one with every kernel's launches on the main paths,
-   error, times and bound; the card's name and power limit; then the
-   result line.
+   phase 11's, one with phase 12's, then one with every kernel's launches
+   on the main paths, error, times and bound; the card's name and power
+   limit; then the result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -635,7 +651,7 @@ SL_ID_TOL = 1e-9       # test_single_layer_identical_under_truncation's bar
 # double-layer oracle, held as test_gram_split_message_quality_under_truncation
 SL_SKETCH_CHI, SL_ORACLE_CHI, SL_SKETCH_RATIO = 24, 72, 1.4
 SL_CARD_TOL = 1e-9     # single-layer messages, card against the CPU port, c128
-SL_SWEEPS = 2          # timed sweeps after one warm-up
+SL_SWEEPS = 1          # timed sweeps after one warm-up (cut from 2 for phase 12's time)
 SL_NO_LIMIT = "1e15"   # KPBP_BLOB_LIMIT above every blob: the direct path only
 
 
@@ -955,6 +971,9 @@ SU_PERTURB = 1e-15     # the change of the seed whose effect on the CPU is the c
 # JAX package itself (su_q0_D3.json "default_ladder")
 SU_LADDER = [0.01] * 200 + [1e-3] * 200 + [1e-4] * 100
 PUBLISHED_SU = {3: -0.41786, 6: -0.43188}   # BASELINE.md
+# the block measurements held against su_q0_D3.json's rows (N=2 17–20 s, N=3
+# 73–75 s of host-bound BP on an H100)
+SU_BLOCK_NS = (2, 3)
 # SU at the published records' D=6: the ladder the card runs
 SU6_LADDER = [0.1] * 10 + [0.01] * 5
 SANDWICH_TOL = 1e-10   # sandwich expectations, card against the CPU port, c128
@@ -1055,7 +1074,7 @@ def su_warm_start(torch, K, SU, IBM, UnitCell, gold, dev):
         SU._sweep = sweep
     lam_gap = _max_lambda_gap(lams, gold["lambdas"])
     rows, rows_s = [], {}
-    for n in (2, 3):
+    for n in SU_BLOCK_NS:
         t0 = time.perf_counter()
         rows += IBM.measure_rows(cell, D, n, n, c128)
         rows_s[n] = time.perf_counter() - t0
@@ -1298,7 +1317,9 @@ SQ_SU_DTS, SQ_SU_SWEEPS = (0.1, 0.05, 0.01), 30       # the asset's SU ladder
 SQ_TOL = 1e-10
 # run_square at D=4 (χ_msg = 2D² = 32, χ = 42), cut to fit: its SU ladder
 # keeps its 7 stages (0.1 → 0.001) at 10 sweeps each in place of 60, and its
-# BP stops after SQ_BP_CUT sweeps in place of 60 (~1.1 s each on an H100)
+# BP stops after SQ_BP_CUT sweeps in place of 60 (~1.1 s each on an H100);
+# at 5 and 6 the energy per site is −0.2533, far from the −0.4930 at 10 and
+# 10 (an H100), so the cut stays there
 SQ_RUN = ["-D", "4", "-m", "2", "-n", "4"]
 SQ_SU_CUT = ["--sweeps-per-dt", "10"]
 SQ_BP_CUT = 10
@@ -1308,7 +1329,8 @@ SQ_REFS = {"Neel": -0.5, "exact": -0.6694}
 # most SQ_FU_SU_BP sweeps) and energy at χ_msg=18, χ=28, and how far a 1e-15
 # change of the start moves them; the full-update polish from that cell runs
 # two dt stages of one sweep, each of its BP runs cut to SQ_FU_BP sweeps
-# (full_update's default 40)
+# (full_update's default 40); its first stage alone raises the energy
+# (−0.5004944 → −0.5004258 on an H100), so both stay
 SQ_CASE_D3 = os.path.join(REPO, "tests", "assets", "square_D3.npz")
 SQ_FU_D, SQ_FU_SU_DTS, SQ_FU_SU_SWEEPS, SQ_FU_SU_BP = 3, (0.1, 0.05, 0.02), 30, 60
 SQ_FU_DTS, SQ_FU_BP = (0.05, 0.02), 12
@@ -1752,6 +1774,288 @@ def square_checks(torch, K, L, M, S, FU, run_square, hamiltonians, dev):
     return res, counts
 
 
+# phase 12: the distribution layer (parallel/*) on one card. Every group's
+# ranks share cuda:0 over gloo (parallel/launch prints its rule and devices).
+P_N, P_D, P_CHI = 2, 3, 18        # phase 6's sweep: the pin cell and phase 6's messages
+P_SIDE_TOL = {"complex128": 1e-10, "complex64": 2e-5}   # sharded against batched, by distance
+P_REPS = 2                        # sweeps per timed run, the first a warm-up
+P_CHAIN_SEED = 12                 # the multichain ITE's second chain, drawn with numpy
+P_MC_TOL = 1e-8                   # multichain ITE energy against one process, complex128
+P_CS_TOL = 1e-9                   # χ-sharded against unsharded, complex128, full-rank sketch
+# KPBP_SKETCH_RANK above every row count, and no power iteration: at full
+# rank the sketch's Q is square and unitary, so the swallow is exact and the
+# power iterations change nothing but the memory (9.35 GiB more per rank at
+# D=6 in complex128, which two ranks on one card do not have)
+P_CS_FULL_RANK = {"KPBP_SKETCH_RANK": "1000000000", "KPBP_SKETCH_POWER": "0"}
+P_SW_SWEEPS = 2                   # bp_worker's BP cut to this many sweeps per point
+P_SW_TOL = 1e-10                  # a point's result, one worker against four, complex128
+P_Q64 = (2, 2, 8, 12)             # N, D, χ_msg, χ of the complex64 QR repair's sweep
+P_Q64_TOL = 2e-5
+GROUP_DEVICE = "cuda"             # where the groups and sweep workers run (the card)
+
+
+def _timed_reps(torch, fn, reps):
+    """(last result, seconds per call), each call ended by a synchronise."""
+    secs, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def _cpu(x):
+    from kagomeperiodicbp_tpu_torch.parallel import launch
+
+    return launch.moved(x, "cpu")
+
+
+def _rank_launches(reports, total):
+    """Add every rank's launches to `total`; return them per rank."""
+    per = [r["launches"] for r in reports]
+    for c in per:
+        _add(total, c)
+    return per
+
+
+def side_sharded_checks(torch, C, B, M, MC, launch, UnitCell, cell64, msgs64, total, dev):
+    """Phase 12.1: the side-sharded sweep on 3 ranks against the batched
+    sweep in this process, complex128 and complex64, both timed."""
+    cell128 = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex128).force_zero_rotation()
+    calls, refs = [], {}
+    for name, cell in (("complex128", cell128), ("complex64", cell64)):
+        dt = getattr(torch, name)
+        sites = {s: tuple(x.to(dt) for x in ss) for s, ss in msgs64.items()}
+        fused = C.fused_cells(cell)
+        run = B.bp_iteration_batched(P_N, P_D, P_CHI, P_CHI, None)
+        refs[name] = _timed_reps(torch, lambda: run(fused, sites), P_REPS)
+        calls.append((MC.sharded_sweep_task, (_cpu(fused), _cpu(sites), P_N, P_D, P_CHI, P_CHI,
+                                              P_REPS)))
+    t0 = time.perf_counter()
+    got = launch.run_each(3, calls, device=GROUP_DEVICE)
+    group_s = time.perf_counter() - t0
+    out = {"group_s": group_s}
+    for (name, (ref, ref_s)), res in zip(refs.items(), got):
+        new, err = res["out"]
+        gaps = _msg_gaps(M, new, ref[0])
+        row = {"max_distance": max(gaps.values()), "err_gap": abs(float(err) - float(ref[1])),
+               "sharded_s": res["seconds"], "batched_s": ref_s,
+               "sharded_median_s": statistics.median(res["seconds"][1:]),
+               "batched_median_s": statistics.median(ref_s[1:]),
+               "devices": [r["device"] for r in res["ranks"]],
+               "launches": _rank_launches(res["ranks"], total)}
+        out[name] = row
+        print(f"side-sharded sweep N={P_N} D={P_D} chi={P_CHI} {name}, 3 ranks on "
+              f"{row['devices']}: {row['sharded_median_s'] * 1e3:.1f} ms per sweep (median of "
+              f"{P_REPS - 1} after one warm-up) against {row['batched_median_s'] * 1e3:.1f} ms "
+              f"batched in one process; messages {row['max_distance']:.3e} apart (tol "
+              f"{P_SIDE_TOL[name]:g}), mean distance {row['err_gap']:.3e}")
+        if not (row["max_distance"] < P_SIDE_TOL[name] and row["err_gap"] < P_SIDE_TOL[name]):
+            raise AssertionError(f"side-sharded sweep {name} differs from the batched one: {row}")
+    print(f"side-sharded group: {group_s:.1f} s wall, spawn and both runs")
+    return out
+
+
+def multichain_inputs(torch, C, F, UnitCell, ite_in, dev):
+    """Two chains, c128: the pin cell with phase 8's BP messages, and a D=3
+    cell drawn with numpy from P_CHAIN_SEED with its own BP messages (N=2,
+    χ_msg=18), the messages an ITE step gets in production. (From uniform
+    messages one sweep leaves that cell's environment far from BP's, and
+    there the update's ALS amplifies the sharded and unsharded sweeps'
+    round-off past the bar: the update's conditioning, ROADMAP queue 3.)"""
+    import numpy as np
+
+    from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig, robust_belief_propagation
+    from kagomeperiodicbp_tpu_torch.convert import unit_cell_from_numpy
+
+    pin, pin_sites, h = ite_in
+    rng, shape = np.random.default_rng(P_CHAIN_SEED), (2,) + (pin.D,) * 4
+
+    def one():
+        t = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return t / np.linalg.norm(t)
+
+    drawn = unit_cell_from_numpy({"A": one(), "B": one(), "C": one()}, device=dev)
+    bp, st = robust_belief_propagation(drawn, None, BPConfig(trunc_dim=ITE_CHI_MSG,
+                                                             dtype=torch.complex128), ITE_N)
+    print(f"multichain inputs: BP on the drawn D={pin.D} cell at N={ITE_N}, "
+          f"chi_msg={ITE_CHI_MSG}, c128: {st.iterations} iterations, error {st.final_error:.3e}")
+    cells, msgs = [pin, drawn], [pin_sites, F._msgs_to_sites(bp)]
+    batch = tuple(torch.stack([c[f] for c in cells]) for f in "ABC")
+    msg_batch = {s: tuple(torch.stack([m[s][k] for m in msgs]) for k in range(len(msgs[0][s])))
+                 for s in msgs[0]}
+    return cells, msgs, batch, msg_batch, torch.as_tensor(h, dtype=torch.complex128, device=dev)
+
+
+def multichain_checks(torch, C, F, B, MC, launch, UnitCell, UpdateEdge, ite_in, total, dev):
+    """Phase 12.4 and 12.2 in one group of 6 ranks (dp=2, side=3):
+    dryrun_multichip's c64 and c128 passes; then the multichain ITE step
+    under KPBP_LINALG=gram in complex128, twice on the same inputs (the
+    first takes 15–19 s on an H100 with the dryrun run before it or not:
+    the gram path's first use in each rank, as the dryrun runs default
+    linear algebra), timed and held chain by chain to the same step in
+    this process."""
+    cells, msgs, batch, msg_batch, h = multichain_inputs(torch, C, F, UnitCell, ite_in, dev)
+    D, edge = cells[0].D, UpdateEdge.all_options()[0]  # (A,B)
+    args = ("ite", _cpu(batch), _cpu(msg_batch), _cpu(h), ITE_N, D, ITE_CHI, ITE_CHI_MSG, edge,
+            ITE_DT, ITE_ALS, 2)
+    calls = [(MC.dryrun_pass, (name, P_D, P_N, P_CHI)) for name in MC.DRYRUN_PASSES]
+    calls += [(launch.with_env, ({"KPBP_LINALG": "gram"}, MC.multichain_task, *args))]
+    t0 = time.perf_counter()
+    got = launch.run_each(6, calls, device=GROUP_DEVICE)
+    group_s = time.perf_counter() - t0
+
+    def one_process():
+        out = []
+        for cell, sites in zip(cells, msgs):
+            new, err = B.bp_iteration_batched(ITE_N, D, ITE_CHI, ITE_CHI_MSG, None)(
+                C.fused_cells(cell), sites)
+            t1, t2, env = F._edge_env((cell.A, cell.B, cell.C), new, ITE_N, ITE_CHI, ITE_CHI_MSG, edge)
+            out.append(F._gate_als(t1, t2, env, h, ITE_DT, D, ITE_ALS, True)[2])
+        return torch.stack(out)
+
+    ref, ref_s = _timed_reps(torch, lambda: _with_linalg("gram", one_process), 2)
+    ite = got[-1]
+    energies = ite["out"][3]
+    gaps = (energies - ref.cpu()).abs()
+    res = {"energies": energies.tolist(), "one_process_energies": ref.tolist(),
+           "gaps": gaps.tolist(), "errs": ite["out"][2].tolist(), "seconds": ite["seconds"],
+           "one_process_s": ref_s, "devices": [r["device"] for r in ite["ranks"]],
+           "launches": _rank_launches(ite["ranks"], total), "group_s": group_s}
+    print(f"multichain ITE step (dp=2, side=3) N={ITE_N} D={D} chi_env={ITE_CHI} chi_msg={ITE_CHI_MSG} "
+          f"edge {edge} als_iters={ITE_ALS} dt={ITE_DT} c128 KPBP_LINALG=gram, ranks on "
+          f"{res['devices']}: {', '.join(f'{s:.2f}' for s in ite['seconds'])} s per step (the first "
+          f"a warm-up) against {', '.join(f'{s:.2f}' for s in ref_s)} s for both chains in one "
+          f"process; energies {res['energies']}, against one process {max(res['gaps']):.3e} "
+          f"(tol {P_MC_TOL:g}); K1/K2 launches per rank "
+          + "; ".join(f"{i}: K1 {c['fused_tensor']}, K2 {c['chol_inv_resident']} resident + "
+                      f"{c['chol_inv_blocked']} blocked" for i, c in enumerate(res["launches"])))
+    if not max(res["gaps"]) < P_MC_TOL:
+        raise AssertionError(f"multichain ITE step differs from one process: {res}")
+    dry = {}
+    for summary in got[:-1]:
+        summary["launches"] = _rank_launches(summary.pop("ranks"), total)
+        dry[summary["dtype"]] = summary
+    print(f"multichain group (dryrun c64 and c128, ITE step): {group_s:.1f} s wall")
+    return {"ite": res, "dryrun": dry}
+
+
+def chi_shard_checks(torch, C, M, CS, launch, UnitCell, BlockSide, total, dev):
+    """Phase 12.3: one single-layer per-side call at phase 9's size (D=6,
+    χ 72/82, c128, toward U), its swallow blobs' rows split over 2 ranks,
+    against the unsharded call in this process, on phase 9's identity input
+    (the pin cell padded to D=6, uniform messages). Held at P_CS_TOL with
+    the sketch at full rank, which makes the sketched swallow exact;
+    printed at the default rank. (On a random D=6 cell with dense random
+    messages the call turns any change of its arithmetic into O(0.1) apart,
+    a 1e-15 change of the cell included: tools/chi_shard_check.py, ROADMAP
+    queue 3.)"""
+    c128 = torch.complex128
+    pin6 = (UnitCell.load(PIN_CELL).astype(c128).force_zero_rotation()
+            .pad_to(SL_D, generator=torch.Generator().manual_seed(0)))
+    uniform = C.initial_messages(SL_N, SL_D, SL_CHI_MSG, dtype=c128)
+    cases = [("pin6_full_rank", pin6, uniform, P_CS_FULL_RANK),
+             ("pin6_default_rank", pin6, uniform, {})]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = launch.run_each(2, [(launch.with_env, (env, CS.outgoing_message_task, cell, msgs, SL_N,
+                                                 SL_D, SL_CHI, SL_CHI_MSG, int(BlockSide.U), True))
+                              for _, cell, msgs, env in cases], device=GROUP_DEVICE)
+    group_s = time.perf_counter() - t0
+
+    def unsharded(cell, msgs, env):
+        cell_d, msgs_d = cell.to_device(dev), launch.moved(msgs, dev)
+        return _timed_reps(torch, lambda: _with_env(env, lambda: C.outgoing_message_single(
+            cell_d, msgs_d, SL_N, SL_D, SL_CHI, SL_CHI_MSG, BlockSide.U)), 1)
+
+    out = {"group_s": group_s}
+    for (name, cell, msgs, env), res in zip(cases, got):
+        ref, ref_s = unsharded(cell, msgs, env)
+        dist = float(M.distance(res["out"], _cpu(ref)))
+        parts = [r["partitioned"] for r in res["ranks"]]
+        out[name] = {"distance": dist, "sharded_s": res["seconds"], "unsharded_s": ref_s,
+                     "partitioned": parts, "launches": _rank_launches(res["ranks"], total)}
+        note = f"tol {P_CS_TOL:g}" if name == "pin6_full_rank" else "printed"
+        print(f"chi-sharded single-layer per-side call D={SL_D} N={SL_N} chi_msg={SL_CHI_MSG} "
+              f"chi={SL_CHI} c128, {name.replace('_', ' ')}, 2 ranks: {res['seconds'][0]:.2f} s "
+              f"against {ref_s[0]:.2f} s unsharded; distance {dist:.3e} ({note}); partitioned "
+              "swallows and rows per rank "
+              + "; ".join(f"{i}: {p['swallows']} swallows, {p['rows']} of {p['of_rows']} rows"
+                          for i, p in enumerate(parts)))
+        if any(p["swallows"] < 1 or p["rows"] >= p["of_rows"] for p in parts):
+            raise AssertionError(f"the χ-sharded call did not split its rows: {parts}")
+    if not out["pin6_full_rank"]["distance"] < P_CS_TOL:
+        raise AssertionError(f"χ-sharded message differs from the unsharded one: {out}")
+    print(f"chi-shard group: {group_s:.1f} s wall")
+    return out
+
+
+def concurrent_sweep_checks(torch, sweep, total):
+    """Phase 12.5: run_sweep over 4 points (bp_worker, D=2 and 3, seeds 0
+    and 1, BP cut to P_SW_SWEEPS sweeps and one attempt) with one worker,
+    then four, all on cuda:0: every point's result the same, wall times and
+    points per second."""
+    import tempfile
+
+    cut = (("max_iterations", P_SW_SWEEPS), ("allowed_retries", 0))
+    pts = [sweep.SweepPoint(D=D, N=2, seed=s, method="bp", extra=cut) for D in (2, 3) for s in (0, 1)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (1, 4):
+            t0 = time.perf_counter()
+            res = sweep.run_sweep(pts, sweep.bp_worker, csv_path=os.path.join(tmp, f"{n}.csv"),
+                                  n_workers=n, child_device=GROUP_DEVICE)
+            wall = time.perf_counter() - t0
+            bad = [r for r in res if "error" in r]
+            if bad:
+                raise AssertionError(f"run_sweep with {n} worker(s) failed points: {bad}")
+            for r in res:
+                _add(total, r["launches"])
+            runs[n] = {"wall_s": wall, "points_per_s": len(pts) / wall,
+                       "bp_s": [r["duration"] for r in res], "devices": [r["device"] for r in res],
+                       "results": [{k: r[k] for k in ("bp_error", "iterations")} for r in res]}
+            print(f"run_sweep bp_worker, 4 points (D=2, 3 x seeds 0, 1; BP cut to {P_SW_SWEEPS} "
+                  f"sweeps), {n} worker(s) on {sorted(set(runs[n]['devices']))}: {wall:.2f} s wall "
+                  f"({runs[n]['points_per_s']:.3f} points/s), BP per point "
+                  f"{', '.join(f'{s:.2f}' for s in runs[n]['bp_s'])} s")
+    gaps = [abs(a["bp_error"] - b["bp_error"]) for a, b in zip(runs[1]["results"], runs[4]["results"])]
+    same = all(a["iterations"] == b["iterations"] for a, b in zip(runs[1]["results"], runs[4]["results"]))
+    print(f"run_sweep: one worker against four, largest bp_error gap {max(gaps):.3e} (tol "
+          f"{P_SW_TOL:g}), iterations {'equal' if same else 'differ'}; speed-up "
+          f"{runs[1]['wall_s'] / runs[4]['wall_s']:.2f}x wall")
+    if not (same and max(gaps) < P_SW_TOL):
+        raise AssertionError(f"run_sweep results differ between one and four workers: {runs}")
+    runs["max_gap"] = max(gaps)
+    return runs
+
+
+def c64_qr_sweep(torch, K, C, F, B, M, UnitCell, dev):
+    """Phase 12.6: the complex64 sweep of the CPU QR repair (N=2, D=2,
+    χ_msg=8, χ=12, uniform messages) on the card, per side and batched (its
+    batched complex64 QRs factored in complex128 by ``ops/linalg._qr``: the
+    card's batched complex64 QR gave non-finite factors here), against the
+    complex128 sweep by distance."""
+    n, d, chi_msg, chi = P_Q64
+    cell = UnitCell.random(2, d, torch.Generator().manual_seed(0)).to_device(dev)
+    out = {}
+    for name, make in (("per_side", F.bp_iteration), ("batched", B.bp_iteration_batched)):
+        new = {}
+        for dt in (torch.complex64, torch.complex128):
+            sites = F._msgs_to_sites(C.initial_messages(n, d, chi_msg, dtype=dt, device=dev))
+            new[dt] = make(n, d, chi, chi_msg, None)(C.fused_cells(cell.astype(dt)), sites)[0]
+        finite = all(bool(torch.isfinite(x).all()) for ss in new[torch.complex64].values() for x in ss)
+        up = {s: tuple(x.to(torch.complex128) for x in ss) for s, ss in new[torch.complex64].items()}
+        gap = max(_msg_gaps(M, up, new[torch.complex128]).values())
+        out[name] = {"finite": finite, "distance_to_c128": gap}
+        print(f"c64 sweep N={n} D={d} chi_msg={chi_msg} chi={chi} {name} on the card: finite "
+              f"{finite}, {gap:.3e} from the c128 sweep (tol {P_Q64_TOL:g})")
+        if not (finite and gap < P_Q64_TOL):
+            raise AssertionError(f"the c64 sweep {name} failed on the card: {out[name]}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2000,7 +2304,7 @@ def main() -> int:
     warm = {}
     warm["su_d3"], _ = su_warm_start(torch, K, SU, IBM, UnitCell, su_gold, dev)
     warm["su_d3"]["bp_modes"] = took("phase 10.2 (the block measurements)")
-    if set(warm["su_d3"]["bp_modes"]) != {f"N={n} D=3 batched" for n in (2, 3)}:
+    if set(warm["su_d3"]["bp_modes"]) != {f"N={n} D=3 batched" for n in SU_BLOCK_NS}:
         raise AssertionError(f"the block measurements did not run the batched sweep: {warm['su_d3']['bp_modes']}")
     warm["su_d6"] = su_large_d(torch, SU, UnitCell, dev)
     warm["sandwich"] = sandwich_checks(torch, K, F, MS, pin_bp, inputs, dev)
@@ -2033,12 +2337,40 @@ def main() -> int:
           f"{json.dumps(counts_b)}, square {json.dumps(counts_sq)}")
     took("phase 11")
 
-    # -- 12. results --
+    # -- 12. the distribution layer on one card: ranks share cuda:0 over gloo --
+    from kagomeperiodicbp_tpu_torch.parallel import chi_shard as CS
+    from kagomeperiodicbp_tpu_torch.parallel import launch
+    from kagomeperiodicbp_tpu_torch.parallel import multichip as MC
+    from kagomeperiodicbp_tpu_torch.parallel import sweep as SW
+
+    t_12 = time.perf_counter()
+    torch.cuda.empty_cache()
+    counts_par = {n: 0 for n in counts_default}   # every rank's and worker's launches
+    par = {"side_sharded": side_sharded_checks(torch, C, B, M, MC, launch, UnitCell, *sweep6,
+                                               counts_par, dev)}
+    par.update(multichain_checks(torch, C, F, B, MC, launch, UnitCell, UpdateEdge, inputs,
+                                 counts_par, dev))
+    par["chi_shard"] = chi_shard_checks(torch, C, M, CS, launch, UnitCell, BlockSide,
+                                        counts_par, dev)
+    par["sweep_workers"] = concurrent_sweep_checks(torch, SW, counts_par)
+    par["c64_qr"] = c64_qr_sweep(torch, K, C, F, B, M, UnitCell, dev)
+    par["launches"] = counts_par
+    par["wall_s"] = time.perf_counter() - t_12
+    print(f"distribution-layer phase: {par['wall_s']:.1f} s wall; launches on the parallel path, "
+          f"all ranks and workers {json.dumps(counts_par)}")
+    missing = [n for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked")
+               if counts_par[n] <= 0]
+    if missing:
+        raise AssertionError(f"the parallel path launched no {missing}")
+    took("phase 12")
+
+    # -- 13. results --
     launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] + counts_sl[n] + counts_ws[n]
-                + counts_b[n] + counts_sq[n] for n in counts_default}
+                + counts_b[n] + counts_sq[n] + counts_par[n] for n in counts_default}
     by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n],
                    "single_layer": counts_sl[n], "warm_start": counts_ws[n],
-                   "batched_sweep": counts_b[n], "square": counts_sq[n]}
+                   "batched_sweep": counts_b[n], "square": counts_sq[n],
+                   "parallel": counts_par[n]}
                for n in counts_default}
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     k1 = ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82")
@@ -2057,6 +2389,7 @@ def main() -> int:
     print(json.dumps({"single_layer": single}))
     print(json.dumps({"warm_start": {"fused_tensor_operator_by_D": k1_op_cases, **warm}}))
     print(json.dumps({"batched_and_square": phase11}))
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,7 +30,7 @@ Damping is a number passed per call (``run(..., damping_value=)``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -85,7 +85,10 @@ def _class_outgoing(fused_stack, msg_stack: MsgSites, N: int, D: int, chi: int, 
     """The outgoing messages of one symmetry class over the stacked
     three-rotation batch: a tuple of stacked sites [3, Dl, p, Dr]. The
     per-side body runs unchanged under vmap; "same" randomness gives the
-    three copies one sketch, as the JAX package's shape-folded key does."""
+    three copies one sketch, as the JAX package's shape-folded key does.
+    Its QRs are batched, so ``ops/linalg._qr`` factors complex64 ones in
+    complex128 (the card's batched complex64 QR fails where the per-side
+    one does not)."""
 
     def one(fused3, msgs):
         return tuple(F._one_outgoing(fused3, msgs, N, D, chi, chi_msg, base).sites)
@@ -93,7 +96,8 @@ def _class_outgoing(fused_stack, msg_stack: MsgSites, N: int, D: int, chi: int, 
     return torch.func.vmap(one, randomness="same")(fused_stack, msg_stack)
 
 
-def bp_sweep_impl(N: int, D: int, chi: int, chi_msg: int, damped: bool):
+def bp_sweep_impl(N: int, D: int, chi: int, chi_msg: int, damped: bool,
+                  class_outgoing: Optional[Callable] = None):
     """One synchronous BP sweep, (fused3, msg_sites, damping) →
     (new_msg_sites, mean distance):
 
@@ -102,14 +106,19 @@ def bp_sweep_impl(N: int, D: int, chi: int, chi_msg: int, damped: bool):
     * damping — the fraction of the old message kept (read only when
       `damped`).
 
-    The mean distance stays a 0-dim device tensor."""
+    `class_outgoing` is how a class's three rotations are computed, with
+    ``_class_outgoing``'s arguments and result; None is that function (one
+    vmapped call). ``parallel/multichip.side_sharder`` gives one that lays
+    the rotations over the ranks of a mesh axis. The mean distance stays a
+    0-dim device tensor."""
+    class_outgoing = class_outgoing or _class_outgoing
 
     def impl(fused3, msg_sites: MsgSites, damping: float):
         fstacks = _rotated_fused_stacks(fused3)
         out_sides = {}
         for base, sides in CLASS_SIDES.items():
-            stacked = _class_outgoing(fstacks, _stacked_msg_sites(msg_sites, base),
-                                      N, D, chi, chi_msg, base)
+            stacked = class_outgoing(fstacks, _stacked_msg_sites(msg_sites, base),
+                                     N, D, chi, chi_msg, base)
             for b, side in enumerate(sides):
                 out_sides[side] = tuple(s[b] for s in stacked)
 

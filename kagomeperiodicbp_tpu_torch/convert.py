@@ -5,7 +5,9 @@ The dict of ``unit_cell_from_numpy`` is the one the JAX package's
 {side_int: [site arrays]}, so a test can hand the same numpy cell and
 messages to both packages; so are a simple update's λs ({(f1, f2): array}),
 an arbitrary block's per-site tensors and a square-lattice cell (an m×m
-list of [d, D,D,D,D] arrays, legs [d, U, L, D, R]) with its messages. A saved cell or best-store file of either package
+list of [d, D,D,D,D] arrays, legs [d, U, L, D, R]) with its messages; chains
+of cells and their messages stack into the [n_chains, …] batches of
+``parallel/multichip``. A saved cell or best-store file of either package
 reads with ``UnitCell.load``; a JAX ``ITETracker`` checkpoint with
 ``tracker_from_jax_checkpoint``. Neither imports JAX or its package.
 """
@@ -68,6 +70,22 @@ def messages_from_numpy(sites: Mapping[int, Sequence[np.ndarray]], device=None,
     """Messages with zero logscale from {side_int: [site arrays]}."""
     return {BlockSide(int(s)): from_sites([_tensor(a, device, dtype) for a in ss])
             for s, ss in sites.items()}
+
+
+def chain_cells_from_numpy(cells: Sequence[Mapping], device=None,
+                           dtype=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (A, B, C) batch of ``parallel/multichip``: one [n_chains, d, D,
+    D, D, D] tensor per flavour from one save dict per chain."""
+    return tuple(torch.stack([_tensor(c[f], device, dtype) for c in cells]) for f in FLAVORS)
+
+
+def message_batch_from_numpy(messages: Sequence[Mapping[int, Sequence[np.ndarray]]], device=None,
+                             dtype=None) -> Dict[int, Tuple[torch.Tensor, ...]]:
+    """{side_int: tuple of [n_chains, …] sites} from one {side_int: [site
+    arrays]} per chain (equal shapes: the canonical padded profile)."""
+    return {int(s): tuple(torch.stack([_tensor(m[s][k], device, dtype) for m in messages])
+                          for k in range(len(messages[0][s])))
+            for s in messages[0]}
 
 
 def lambdas_from_numpy(lams: Mapping[Tuple[int, int], np.ndarray], device=None,

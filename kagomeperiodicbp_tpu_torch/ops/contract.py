@@ -15,11 +15,16 @@ truncation only canonicalises the sites it needs: a windowed,
 mixed-canonical truncation with amortised O(row) sweeps. All marker logic is
 host-side Python on ints; only tensor ops reach the device, and nothing in
 here reads a value back to the host.
+
+``row_partition`` is the χ-sharding hook of ``parallel/chi_shard`` (the
+counterpart of the JAX package's ``site_constraint``): while it is set, the
+ranks of a group split the rows of each large swallow blob between them.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -370,12 +375,76 @@ _SWALLOWS = {"message": 0, "fused": 0, "direct": 0, "sketched": 0}
 
 
 def reset_swallow_counts() -> None:
+    """Zero the swallow counts and the partitioned-swallow counts."""
     for k in _SWALLOWS:
         _SWALLOWS[k] = 0
+    for k in _PARTITIONED:
+        _PARTITIONED[k] = 0
 
 
 def swallow_counts() -> dict:
     return dict(_SWALLOWS)
+
+
+# The row-partition hook: (gather, rank, size, min_size) or None. While it is
+# set, a double-layer swallow, or a direct single-layer one, whose first
+# consumed site's left bond Dl is at least min_size builds only this rank's
+# chunk of the blob's Dl rows: that bond is a free index of the tensordot
+# chain (the blob's leading axis; in ``_swallow_ket_blob`` as well, where
+# every step keeps it first). The chunks, padded to equal size, are gathered
+# before the norm is absorbed; the split, the truncations and the norms stay
+# replicated, as in the JAX package, where the windowed truncations are
+# gathered. The sketched swallow and message swallows stay replicated too.
+# Rows built by different ranks fit together because every rank holds the
+# same frontier, gauge included: the replicated steps run the same
+# arithmetic on the same inputs, which the card repeats exactly across
+# processes (at D=6 rank 0's own unsharded call equals another process's,
+# tools/chi_shard_check.py).
+_ROW_PARTITION: Optional[tuple] = None
+# partitioned swallows on this rank since ``reset_swallow_counts``, the rows
+# it built and the rows of those blobs
+_PARTITIONED = {"swallows": 0, "rows": 0, "of_rows": 0}
+
+
+@contextlib.contextmanager
+def row_partition(gather: Callable[[torch.Tensor], List[torch.Tensor]], rank: int, size: int):
+    """Split large swallow blobs' rows over `size` ranks for the duration,
+    this one being `rank`: those whose bond has at least twice as many rows
+    as there are ranks (a smaller bond is not worth the gather, as the JAX
+    package's ``site_sharder`` replicates it). ``gather(t)`` returns every
+    rank's `t` (equal shapes) in rank order; ``parallel/chi_shard`` passes
+    a collective over its group."""
+    global _ROW_PARTITION
+    prev = _ROW_PARTITION
+    _ROW_PARTITION = (gather, rank, size, 2 * size)
+    try:
+        yield
+    finally:
+        _ROW_PARTITION = prev
+
+
+def partition_counts() -> dict:
+    return dict(_PARTITIONED)
+
+
+def _partitioned(build: Callable[[torch.Tensor], torch.Tensor], s0: torch.Tensor) -> torch.Tensor:
+    """build(s0) — the blob whose leading axis is s0's left bond — with its
+    rows split over the row-partition ranks when the hook is set and the
+    bond is large enough."""
+    if _ROW_PARTITION is None or s0.shape[0] < _ROW_PARTITION[3]:
+        return build(s0)
+    gather, r, n, _ = _ROW_PARTITION
+    rows = s0.shape[0]
+    chunk = -(-rows // n)
+    lo, hi = min(r * chunk, rows), min((r + 1) * chunk, rows)
+    part = build(s0[lo:hi])
+    if hi - lo < chunk:
+        pad = part.new_zeros((chunk - (hi - lo),) + tuple(part.shape[1:]))
+        part = torch.cat([part, pad])
+    _PARTITIONED["swallows"] += 1
+    _PARTITIONED["rows"] += hi - lo
+    _PARTITIONED["of_rows"] += rows
+    return torch.cat(gather(part))[:rows]
 
 
 def _truncate_after(fr: Frontier, plan: Plan, s: int, n_out: int) -> None:
@@ -423,16 +492,22 @@ def apply_step(fr: Frontier, plan: Plan, step: Step, raw: torch.Tensor, dtype=No
                 fr.replace(s, n_in, new_sites)
                 _truncate_after(fr, plan, s, n_out)
                 return
-        blob = _swallow_ket_blob(t, consumed, n_in, n_out, D)
+        blob = _partitioned(lambda s0: _swallow_ket_blob(t, [s0] + consumed[1:], n_in, n_out, D),
+                            consumed[0])
         _SWALLOWS["direct"] += 1
     else:
         consumed = fr.sites[s : s + n_in]
-        run = torch.tensordot(t, consumed[0], dims=([0], [1]))
-        run = torch.movedim(run, run.ndim - 2, 0)  # [Dl, in2.., out.., b]
-        for j in range(1, n_in):
-            run = torch.tensordot(run, consumed[j], dims=([1, run.ndim - 1], [1, 0]))
-        blob = run  # [Dl, out..., Dr]
-        _SWALLOWS["fused" if step.source[0] == "lat" else "message"] += 1
+
+        def chain(s0):
+            run = torch.tensordot(t, s0, dims=([0], [1]))
+            run = torch.movedim(run, run.ndim - 2, 0)  # [Dl, in2.., out.., b]
+            for j in range(1, n_in):
+                run = torch.tensordot(run, consumed[j], dims=([1, run.ndim - 1], [1, 0]))
+            return run  # [Dl, out..., Dr]
+
+        lattice = step.source[0] == "lat"
+        blob = _partitioned(chain, consumed[0]) if lattice else chain(consumed[0])
+        _SWALLOWS["fused" if lattice else "message"] += 1
 
     blob = fr._absorb_norm(blob)
 

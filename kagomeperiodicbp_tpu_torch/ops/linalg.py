@@ -70,13 +70,34 @@ def cholqr2(a: torch.Tensor):
     return _phase_fix(q, r2 @ r1)
 
 
+def _batched(a: torch.Tensor) -> bool:
+    """Whether `a` is a batch of matrices: leading batch axes, or a tensor
+    that ``torch.func.vmap`` maps (the batched sweep's)."""
+    return a.ndim > 2 or torch._C._functorch.is_batchedtensor(a)
+
+
+def _qr(a: torch.Tensor):
+    """Thin ``torch.linalg.qr``. A complex64 matrix on the CPU, or a batch of
+    complex64 matrices on any device, is factored in complex128 and the
+    factors cast back: torch's CPU complex64 QR and the card's batched one
+    return non-finite Q and R for some finite rank-deficient inputs (16×12
+    blobs of rank 4 in a BP sweep at N=2, D=2, χ_msg=8, χ=12, batched or
+    not on the CPU, batched on an H100), where numpy's complex64 QR, the
+    card's unbatched one and complex128 do not. The card's unbatched
+    complex64 QRs stay as they are (tools/qr_widen_check.py measures what
+    widening costs)."""
+    if a.dtype == torch.complex64 and (a.device.type == "cpu" or _batched(a)):
+        q, r = torch.linalg.qr(a.to(torch.complex128), mode="reduced")
+        return q.to(a.dtype), r.to(a.dtype)
+    return torch.linalg.qr(a, mode="reduced")
+
+
 def qr_stable(a: torch.Tensor):
     """Thin QR with R's diagonal made real-nonnegative (unique gauge);
     tall matrices go through CholeskyQR2 under KPBP_LINALG=gram."""
     if _gram_mode() and a.ndim == 2 and a.shape[0] >= a.shape[1]:
         return cholqr2(a)
-    q, r = torch.linalg.qr(a, mode="reduced")
-    return _phase_fix(q, r)
+    return _phase_fix(*_qr(a))
 
 
 def svd_trunc(a: torch.Tensor, k: int):
@@ -87,6 +108,7 @@ def svd_trunc(a: torch.Tensor, k: int):
 
 # Exact SVD up to this size; above it the randomized projection.
 RSVD_MIN_DIM = 256
+
 RSVD_OVERSAMPLE = 10
 RSVD_POWER_ITERS = 2
 
@@ -108,10 +130,10 @@ def rsvd_trunc(a: torch.Tensor, k: int, oversample: int = RSVD_OVERSAMPLE,
         omega = torch.randn((n, ell), generator=gen, dtype=_real_dtype(a.dtype), device=a.device)
     omega = omega.to(a.dtype)
     y = a @ omega
-    q, _ = torch.linalg.qr(y, mode="reduced")
+    q, _ = _qr(y)
     for _ in range(power_iters):
-        z, _ = torch.linalg.qr(a.mH @ q, mode="reduced")
-        q, _ = torch.linalg.qr(a @ z, mode="reduced")
+        z, _ = _qr(a.mH @ q)
+        q, _ = _qr(a @ z)
     b = q.mH @ a
     ub, s, vh = torch.linalg.svd(b, full_matrices=False)
     u = q @ ub

@@ -125,6 +125,38 @@ def test_batched_sweep_matches_jax():
     assert abs(float(err) - float(jerr)) < JAX_TOL
 
 
+@pytest.fixture(scope="module")
+def c64_case():
+    """N=2, D=2, χ_msg=8, χ=12 in complex64 from uniform messages (χ above
+    the rank of some swallow blobs): a numpy cell and the JAX package's
+    per-side sweep of it."""
+    D, chi_msg, chi = 2, 8, 12
+    cell_np = numpy_cell(D, 0)
+    jcell = JUnitCell(*(jnp.asarray(cell_np[f], jnp.complex64) for f in "ABC"))
+    jmsgs = JF._msgs_to_sites(JC.initial_messages(N, D, chi_msg, dtype=jnp.complex64))
+    jnew, jerr = JF.bp_iteration(N, D, chi, chi_msg, None)(JC.fused_cells(jcell), jmsgs)
+    return cell_np, {s: [np.asarray(x) for x in ss] for s, ss in jnew.items()}, float(jerr)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["per_side", "batched"])
+def test_complex64_sweep_on_rank_deficient_blobs_matches_jax(c64_case, batched):
+    """torch's CPU complex64 QR gave non-finite factors for a finite
+    rank-deficient blob of this sweep (16×12, rank 4); ``ops/linalg`` factors
+    complex64 on the CPU in complex128. The port's messages are finite and
+    within 2e-5 of the JAX package's by distance (the c64 bar)."""
+    D, chi_msg, chi = 2, 8, 12
+    cell_np, jnew, jerr = c64_case
+    cell = unit_cell_from_numpy(cell_np, dtype=torch.complex64)
+    msgs = F._msgs_to_sites(C.initial_messages(N, D, chi_msg, dtype=torch.complex64))
+    run = (B.bp_iteration_batched if batched else F.bp_iteration)(N, D, chi, chi_msg, None)
+    new, err = run(C.fused_cells(cell), msgs)
+    assert all(bool(torch.isfinite(x).all()) for ss in new.values() for x in ss)
+    got = {s: [x.to(torch.complex128) for x in ss] for s, ss in new.items()}
+    want = F._msgs_to_sites(messages_from_numpy(jnew, dtype=torch.complex128))
+    assert max_distance(got, want) < 2e-5
+    assert abs(float(err) - jerr) < 2e-5
+
+
 def test_damping_is_passed_per_call():
     """The batched sweep with damping: the value given per call is the one
     used, as in the per-side sweep built with that damping; a sweep built

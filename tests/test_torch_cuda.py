@@ -517,3 +517,49 @@ def test_batched_sweep_on_card_matches_per_side(cuda, monkeypatch, linalg):
         assert all(counts[0][n] == 3 * counts[1][n] for n in k2)
     else:
         assert all(counts[0][n] == counts[1][n] == 0 for n in k2)
+
+
+@pytest.mark.cuda
+def test_side_sharded_sweep_on_card_matches_batched(cuda):
+    """One side-sharded sweep at N=2, D=3, χ=12 over 3 gloo ranks that share
+    cuda:0 (``parallel/launch``'s rule on one card), against the batched
+    sweep on the card in one process, c128, by message distance; every rank
+    ran on the card."""
+    from kagomeperiodicbp_tpu_torch.algo import batched as B
+    from kagomeperiodicbp_tpu_torch.parallel import launch
+    from kagomeperiodicbp_tpu_torch.parallel import multichip as MC
+
+    cell = UnitCell.random(2, 3, torch.Generator().manual_seed(3))
+    msgs = C.initial_messages(2, 3, 12, model="random", generator=torch.Generator().manual_seed(4))
+    fused, sites = C.fused_cells(cell), F._msgs_to_sites(msgs)
+    got = launch.run_group(3, MC.sharded_sweep_task, fused, sites, 2, 3, 12, 12)
+    new, err = got["out"]
+    want, err_want = B.bp_iteration_batched(2, 3, 12, 12, None)(
+        C.fused_cells(cell.to_device(cuda)), {s: tuple(x.to(cuda) for x in ss)
+                                              for s, ss in sites.items()})
+    for s in want:
+        assert float(mpslib.distance(mpslib.from_sites(new[s]),
+                                     mpslib.from_sites([x.cpu() for x in want[s]]))) < 1e-10
+    assert abs(float(err) - float(err_want)) < 1e-10
+    assert all(r["device"].startswith("cuda") for r in got["ranks"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["per_side", "batched"])
+def test_complex64_sweep_on_rank_deficient_blobs_on_card(cuda, batched):
+    """The complex64 sweep at N=2, D=2, χ_msg=8, χ=12 from uniform messages
+    on the card: finite, within 2e-5 of the complex128 sweep by distance
+    (the batched sweep's vmapped complex64 QR gave non-finite factors on
+    its rank-4 blobs until it went through complex128)."""
+    from kagomeperiodicbp_tpu_torch.algo import batched as B
+
+    cell = UnitCell.random(2, 2, torch.Generator().manual_seed(0)).to_device(cuda)
+    make = B.bp_iteration_batched if batched else F.bp_iteration
+    new = {}
+    for dt in (torch.complex64, torch.complex128):
+        sites = F._msgs_to_sites(C.initial_messages(2, 2, 8, dtype=dt, device=cuda))
+        new[dt] = make(2, 2, 12, 8, None)(C.fused_cells(cell.astype(dt)), sites)[0]
+    assert all(bool(torch.isfinite(x).all()) for ss in new[torch.complex64].values() for x in ss)
+    for s, ss in new[torch.complex64].items():
+        a = mpslib.from_sites([x.to(torch.complex128) for x in ss])
+        assert float(mpslib.distance(a, mpslib.from_sites(new[torch.complex128][s]))) < 2e-5

@@ -251,6 +251,29 @@ def test_svd_trunc_gram_retries_a_failed_eigh_shifted(monkeypatch, shape):
     np.testing.assert_allclose(recon.numpy(), a.numpy(), atol=1e-10 * float(s[0]))
 
 
+def test_complex64_qr_in_double_takes_every_device(monkeypatch):
+    """A batch of complex64 matrices on any device (here meta tensors, with
+    a leading batch axis or mapped by ``torch.func.vmap``, as the batched
+    sweep's are) is factored in complex128 and cast back; a single one only
+    on the CPU; complex128 is left as it is."""
+    qr, seen = torch.linalg.qr, []
+
+    def recording(x, mode="reduced"):
+        seen.append(x.dtype)
+        return qr(x, mode=mode)
+
+    monkeypatch.setattr(torch.linalg, "qr", recording)
+    meta = torch.empty((3, 16, 12), dtype=torch.complex64, device="meta")
+    assert [t.dtype for t in TL._qr(meta[0])] == [torch.complex64] * 2
+    assert [t.dtype for t in TL._qr(meta)] == [torch.complex64] * 2
+    q = torch.func.vmap(lambda x: TL._qr(x)[0])(meta)
+    assert q.shape == (3, 16, 12) and q.dtype == torch.complex64
+    TL._qr(meta.to(torch.complex128))
+    TL._qr(torch.zeros((4, 3), dtype=torch.complex64))
+    assert seen == [torch.complex64, torch.complex128, torch.complex128, torch.complex128,
+                    torch.complex128]
+
+
 @pytest.mark.parametrize("site", ["robust_solve", "eigh_psd_sqrt"])
 def test_ite_solves_retry_a_failed_eigh_shifted(monkeypatch, site):
     """robust_solve and eigh_psd_sqrt, like the gram SVD, take eigh of

@@ -262,14 +262,16 @@ print(json.dumps({"modules": names,
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port, the batched sweep, the square lattice,
-    run_square and the plots among them, and chip_smoke.py import in a
-    fresh process without JAX or the JAX package, and without matplotlib
-    (the plots import it when they draw)."""
+    run_square, the plots and the distribution layer among them, and
+    chip_smoke.py import in a fresh process without JAX or the JAX package,
+    and without matplotlib (the plots import it when they draw)."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     pkg = "kagomeperiodicbp_tpu_torch."
     assert {pkg + m for m in ("algo.batched", "square", "square.lattice", "square.algo",
-                              "square.fullupdate", "run_square", "visualizations.plots")} <= set(got["modules"])
+                              "square.fullupdate", "run_square", "visualizations.plots",
+                              "parallel.launch", "parallel.multichip", "parallel.chi_shard",
+                              "parallel.sweep", "utils.csvs", "run_sweep")} <= set(got["modules"])
     assert len(got["modules"]) > 30 and got["imported"] == [] and not got["matplotlib"]
