@@ -103,11 +103,29 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    one worker and then four on the card, every point's result the same,
    wall times and points per second; the complex64 sweep of the QR repair
    (N=2, D=2, χ 8/12) per side and batched against complex128;
-13. a JSON line with K1's cases by D, one with the ITE numbers, one with
+13. large D and records: the pin cell padded to D=7 with no noise, and its
+   BP messages (N=2, χ_msg=98, χ=108, complex128) padded alike, measured
+   through the single-layer edge environment the blob rule picks
+   (algo/edge_env.env_single_layer), its six edge energies against the
+   unpadded pin's at the same N and χ (the pin's BP and measurement are
+   the reference, kept out of the launch counts); large_d_demo's D=8 work
+   unit (χ_msg=128, χ=138, complex64, a numpy-seeded random cell, uniform
+   messages): one single-layer per-side call and one ITE edge update on its
+   message, each timed with peak device memory, swallows by kind and K1's
+   launch, then one per-side call under KPBP_LINALG=gram; the D=8 edge
+   environment at χ 16/26 in complex128, single-layer against double-layer
+   with exact SVDs;
+   the entry point ``large_d_demo 7 --sweeps 1``; then, as a path of their
+   own, measure_padded at D=3 from the repository's D=2 record
+   (--no-store), its energy beside the record's, and bp_accuracy and
+   load_external_su at D=2, card against the CPU port; then, the launch
+   counts read, K2 held to its plain version at every size the D=8 gram
+   call gave it, timed beside the library call at the largest;
+14. a JSON line with K1's cases by D, one with the ITE numbers, one with
    the single-layer numbers, one with the warm-start numbers, one with
-   phase 11's, one with phase 12's, then one with every kernel's launches
-   on the main paths, error, times and bound; the card's name and power
-   limit; then the result line.
+   phase 11's, one with phase 12's, one with phase 13's, then one with every
+   kernel's launches on the main paths, error, times and bound; the card's
+   name and power limit; then the result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -1305,7 +1323,7 @@ B_N, B_CHI = 2, 18    # phase 6's sweep (bench.py's bp_sweeps_per_second_D3_N2_c
 # batched against per-side, by message distance and mean distance: complex128
 # at the parity bar, complex64 at the North star's bp bar
 BATCHED_TOL = {"complex128": 1e-10, "complex64": 2e-5}
-B_ROUNDS = 2          # timed rounds of per-side, batched, batched, per-side
+B_ROUNDS = 1          # timed rounds of per-side, batched, batched, per-side (cut from 2 for phase 13's time)
 # the largest D the auto rule runs batched, at χ_msg = 2D², χ = 2D²+10
 WIDE_D, WIDE_CHI_MSG, WIDE_CHI = 5, 50, 60
 # the square lattice: tests/assets/square_D2.npz (tools/make_square_case.py)
@@ -1787,7 +1805,7 @@ P_CS_TOL = 1e-9                   # χ-sharded against unsharded, complex128, fu
 # power iterations change nothing but the memory (9.35 GiB more per rank at
 # D=6 in complex128, which two ranks on one card do not have)
 P_CS_FULL_RANK = {"KPBP_SKETCH_RANK": "1000000000", "KPBP_SKETCH_POWER": "0"}
-P_SW_SWEEPS = 2                   # bp_worker's BP cut to this many sweeps per point
+P_SW_SWEEPS = 1                   # bp_worker's BP cut to this many sweeps per point (2 before phase 13)
 P_SW_TOL = 1e-10                  # a point's result, one worker against four, complex128
 P_Q64 = (2, 2, 8, 12)             # N, D, χ_msg, χ of the complex64 QR repair's sweep
 P_Q64_TOL = 2e-5
@@ -2053,6 +2071,328 @@ def c64_qr_sweep(torch, K, C, F, B, M, UnitCell, dev):
               f"{finite}, {gap:.3e} from the c128 sweep (tol {P_Q64_TOL:g})")
         if not (finite and gap < P_Q64_TOL):
             raise AssertionError(f"the c64 sweep {name} failed on the card: {out[name]}")
+    return out
+
+
+# phase 13: large D and records. The D=7 check holds the pin cell padded to
+# D=7 (no noise, its messages padded alike) against the unpadded pin at the
+# same N and χ: the padded bonds carry zeros, so the state and its energies
+# are the D=3 pin's; at D=7, χ 98/108 the blob rule contracts the edge
+# environments single-layer (a·b·D⁶ = 1.25e9 > 3e8)
+LD7_D, LD7_N, LD7_CHI_MSG, LD7_CHI = 7, 2, 98, 108
+LD7_TOL = 1e-8        # complex128
+# the D=8 work unit of large_d_demo (χ_msg = 2D² = 128, χ = 138), complex64,
+# on a numpy-seeded random cell from uniform messages
+LD8_D, LD8_N, LD8_CHI_MSG, LD8_CHI = 8, 2, 128, 138
+REC_TOL = 1e-10       # the record entry points, card against the CPU port, complex128
+# measure_padded at D=3 (no noise) against the D=2 record's energy: the JAX
+# script's own energies move by up to 1.6e-8 at a zero pad under a 1e-15 move
+# of the cell (tools/torch_cpu_checks.py pad); 3× that
+REC_PAD_TOL = 5e-8
+# the D=8 edge environment, single-layer against double-layer, at a χ where
+# the double-layer plans fit: both truncate the same matrices
+LD8_ENV_CHI_MSG, LD8_ENV_CHI = 16, 26
+# bp_accuracy's exact environment at D=2, N=2 at χ=16, below the script's
+# default 40: the card is held to the CPU at the same χ, and at 40 the CPU
+# side took 25 s beside 9.5 s on the card (an H100 machine's 8 cores)
+REC_EXACT_CHI = 16
+BEST_STORE = os.path.join(REPO, "data", "unit_cells", "best")
+
+
+def ld_padded_pin(torch, C, E, CT, MS, BP, UnitCell, hamiltonians, uncounted, dev):
+    """Phase 13.1: the six edge energies of the pin cell padded to D=7, its
+    BP messages (N=2, χ_msg=98, χ=108, complex128) padded alike, through the
+    single-layer environment the blob rule picks, against the unpadded pin's
+    (double-layer) at the same N and χ, held at LD7_TOL. The pin's BP and
+    measurement run through `uncounted`. The swallows are printed: the
+    bonds' shapes, and so the kinds, do not depend on the values, and no
+    lattice step of the environment takes the sketched swallow."""
+    c128 = torch.complex128
+    h = hamiltonians.heisenberg_afm()
+    pin = UnitCell.load(PIN_CELL, device=dev).astype(c128).force_zero_rotation()
+    cfg = BP.BPConfig(trunc_dim=LD7_CHI_MSG, bubble_trunc_dim=LD7_CHI, dtype=c128)
+    msgs, st = uncounted(BP.robust_belief_propagation, pin, None, cfg, LD7_N)
+    rules = {D: E.env_single_layer(D, LD7_CHI, LD7_CHI_MSG) for D in (pin.D, LD7_D)}
+    if rules != {pin.D: False, LD7_D: True}:
+        raise AssertionError(f"the blob rule picked {rules} (single-layer?) at chi {LD7_CHI_MSG}/{LD7_CHI}")
+    t0 = time.perf_counter()
+    ref = uncounted(MS.measure_energies_and_observables, pin, msgs, LD7_N, LD7_CHI, LD7_CHI_MSG, h)
+    ref_s = time.perf_counter() - t0
+    cell7 = pin.pad_to(LD7_D, noise_fraction=0)
+    msgs7 = C.pad_messages(msgs, LD7_N, LD7_D, LD7_CHI_MSG)
+    CT.reset_swallow_counts()
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    got = MS.measure_energies_and_observables(cell7, msgs7, LD7_N, LD7_CHI, LD7_CHI_MSG, h)
+    s7, swallows, peak = time.perf_counter() - t0, CT.swallow_counts(), _peak_gb(torch)
+    gap = max(abs(got.energies[k] - v) for k, v in ref.energies.items())
+    res = {"config": {"D": LD7_D, "N": LD7_N, "chi_msg": LD7_CHI_MSG, "chi": LD7_CHI, "dtype": "complex128",
+                      "single_layer_env": True},
+           "bp_error": st.final_error, "bp_mode": st.mode, "d3_measure_s": ref_s, "d7_measure_s": s7,
+           "d7_peak_gb": peak, "swallows": swallows, "mean_energy": got.mean_energy,
+           "d3_mean_energy": ref.mean_energy, "gap": gap}
+    print(f"large D: the pin padded to D={LD7_D}, N={LD7_N}, chi_msg={LD7_CHI_MSG}, chi={LD7_CHI}, c128: "
+          f"six edge energies {gap:.3e} from the unpadded pin's (tol {LD7_TOL:g}); mean "
+          f"{got.mean_energy!r} against {ref.mean_energy!r}; D={LD7_D} measurement {s7:.2f} s, peak "
+          f"{peak:.2f} GB, swallows {json.dumps(swallows)}; D=3 measurement {ref_s:.2f} s; BP "
+          f"{st.mode}, error {st.final_error:.3e}")
+    if not (gap < LD7_TOL and swallows["fused"] == 0 and swallows["direct"] > 0
+            and swallows["sketched"] == 0):
+        raise AssertionError(f"the padded D={LD7_D} pin, single-layer, against the pin: {res}")
+    return res
+
+
+def ld_d8(torch, K, L, C, F, CT, UnitCell, BlockSide, UpdateEdge, hamiltonians, dev):
+    """Phase 13.2: large_d_demo's D=8 work unit in complex64 (N=2, χ_msg=128,
+    χ=138) on a numpy-seeded random cell from uniform messages: one
+    single-layer per-side call, timed, with peak device memory and swallows
+    by kind; one ITE edge update (A,B) on its message and uniform ones (the
+    blob rule: single-layer boundary plans), timed with peak memory, which
+    must be finite and healthy with one K1 launch; one per-side call under
+    KPBP_LINALG=gram, every size it hands K2 recorded. Returns the record and
+    the K2 sizes."""
+    from kagomeperiodicbp_tpu_torch.convert import numpy_random_cell, unit_cell_from_numpy
+
+    c64 = torch.complex64
+    cell = unit_cell_from_numpy(numpy_random_cell(LD8_D, 0), dev, c64)
+    kets = (cell.A, cell.B, cell.C)
+    sites = F._msgs_to_sites(C.initial_messages(LD8_N, LD8_D, LD8_CHI_MSG, dtype=c64, device=dev))
+    side = lambda: F._one_side_update(kets, sites, LD8_N, LD8_D, LD8_CHI, LD8_CHI_MSG,  # noqa: E731
+                                      int(BlockSide.U), None, True)
+    CT.reset_swallow_counts()
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    new, dist = side()
+    dist = float(dist)
+    per_side = {"s": time.perf_counter() - t0, "peak_gb": _peak_gb(torch),
+                "swallows": CT.swallow_counts(), "distance": dist}
+    print(f"large D: single-layer per-side call D={LD8_D} N={LD8_N} chi_msg={LD8_CHI_MSG} chi={LD8_CHI} "
+          f"c64 (random cell, uniform messages): {per_side['s']:.2f} s, peak {per_side['peak_gb']:.2f} GB, "
+          f"swallows {json.dumps(per_side['swallows'])}, distance {dist:.3e}")
+    if not (dist == dist and all(bool(torch.isfinite(x).all()) for x in new)):
+        raise AssertionError(f"the D={LD8_D} per-side call gave non-finite messages: {per_side}")
+
+    msg = dict(sites)
+    msg[int(BlockSide.U.opposite())] = new
+    h = torch.as_tensor(hamiltonians.heisenberg_afm(), dtype=c64, device=dev)
+    edge = UpdateEdge.all_options()[0]  # (A,B)
+    upd = F.edge_update(LD8_N, LD8_D, LD8_CHI, LD8_CHI_MSG, edge, ITE_ALS, True)
+    before = K.launch_counts()["fused_tensor"]
+    L.reset_eigh_retries()
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    cells, energy, herm, sum_eig, neg = upd(kets, msg, h, ITE_DT)
+    scalars = torch.stack([energy, herm, sum_eig.real, neg]).tolist()
+    update = {"s": time.perf_counter() - t0, "peak_gb": _peak_gb(torch),
+              "k1_launches": K.launch_counts()["fused_tensor"] - before, "energy": scalars[0],
+              "herm": scalars[1], "sum_eig": scalars[2], "negativity": scalars[3],
+              "eigh_retries": L.eigh_retries()}
+    finite = all(bool(torch.isfinite(t).all()) for t in cells)
+    print(f"large D: ITE edge update D={LD8_D} chi_env={LD8_CHI} edge {edge} c64 (single-layer "
+          f"environment): {update['s']:.2f} s, peak {update['peak_gb']:.2f} GB; K1 launches "
+          f"{update['k1_launches']}; finite {finite}; energy {scalars[0]:.8f}, hermiticity {scalars[1]:.2e}, "
+          f"eigenvalue sum {scalars[2]:.6f}, negativity {scalars[3]:.2e}; shifted eigh retries "
+          f"{json.dumps(update['eigh_retries'])}")
+    if update["k1_launches"] != 1 or not finite or not abs(scalars[2] - 1) < C64_TOL:
+        raise AssertionError(f"the D={LD8_D} edge update failed: {update}")
+
+    before = K.launch_counts()
+    _fresh_peak(torch)
+    t0 = time.perf_counter()
+    _, k_seen = k2_sizes(L, lambda: _with_env({"KPBP_LINALG": "gram"},
+                                              lambda: [x.sum().item() for x in side()[0][:1]]))
+    counts = K.launch_counts()
+    gram = {"s": time.perf_counter() - t0, "peak_gb": _peak_gb(torch),
+            "launches": {n: counts[n] - before[n] for n in counts},
+            "k2_sizes": {str(k): c for k, c in sorted(k_seen.items())}}
+    print(f"large D: per-side call D={LD8_D} under KPBP_LINALG=gram: {gram['s']:.2f} s, peak "
+          f"{gram['peak_gb']:.2f} GB; launches {json.dumps(gram['launches'])}; K2 sizes k:calls "
+          f"{json.dumps(gram['k2_sizes'])}")
+    if gram["launches"]["chol_inv_blocked"] < 1 or gram["launches"]["chol_inv_resident"] < 1:
+        raise AssertionError(f"the D={LD8_D} gram per-side call did not launch both K2 variants: {gram}")
+    return {"config": {"D": LD8_D, "N": LD8_N, "chi_msg": LD8_CHI_MSG, "chi": LD8_CHI, "dtype": "complex64"},
+            "per_side": per_side, "edge_update": update, "gram_per_side": gram}, k_seen
+
+
+def ld_d8_environment(torch, E, IK, L, UpdateEdge, CT, uncounted, dev):
+    """Phase 13.3: the D=8 edge environment of edge (A,B) on a numpy-seeded
+    random cell and numpy-drawn product messages at χ_msg=16, χ=26,
+    complex128, single-layer (the plans the blob rule picks from D=7)
+    against double-layer, which runs through `uncounted`: the pair's
+    trace-normalised RDM with exact SVDs (L.RSVD_MIN_DIM lifted), held at
+    SL_ID_TOL, with the single-layer swallows by kind; with the default
+    randomized SVD (frontier matrices of 1024 rows), whose sketch sees each
+    path's own rounding, the two are printed."""
+    from kagomeperiodicbp_tpu_torch.convert import numpy_product_messages, numpy_random_cell
+
+    c128 = torch.complex128
+    cell_np = numpy_random_cell(LD8_D, 1)
+    cells = tuple(torch.as_tensor(cell_np[f], dtype=c128, device=dev) for f in "ABC")
+    sites = {s: tuple(torch.as_tensor(x, dtype=c128, device=dev) for x in ss)
+             for s, ss in numpy_product_messages(LD8_N, LD8_D, LD8_ENV_CHI_MSG, 2).items()}
+    edge = UpdateEdge.all_options()[0]
+
+    def rdm(single):
+        t1, t2, env, _ = E.edge_environment_sites(cells, sites, LD8_N, LD8_ENV_CHI, LD8_ENV_CHI_MSG,
+                                                  edge, single_layer=single)
+        r = IK.rho_ij(t1, t2, env)
+        return r / torch.einsum("iijj->", r)
+
+    def pair():
+        rho, secs = {}, {}
+        for single in (True, False):
+            CT.reset_swallow_counts()
+            t0 = time.perf_counter()
+            rho[single] = rdm(True) if single else uncounted(rdm, False)
+            torch.cuda.synchronize()
+            secs[single] = time.perf_counter() - t0
+            if single:
+                swallows = CT.swallow_counts()
+        return (rho[True] - rho[False]).abs().max().item(), secs, swallows
+
+    rsvd_gap, _, _ = pair()
+    min_dim = L.RSVD_MIN_DIM
+    L.RSVD_MIN_DIM = 10 ** 9
+    try:
+        gap, secs, swallows = pair()
+    finally:
+        L.RSVD_MIN_DIM = min_dim
+    res = {"config": {"D": LD8_D, "N": LD8_N, "chi_msg": LD8_ENV_CHI_MSG, "chi": LD8_ENV_CHI,
+                      "dtype": "complex128", "edge": str(edge)},
+           "gap": gap, "randomized_svd_gap": rsvd_gap, "single_s": secs[True], "double_s": secs[False],
+           "swallows": swallows}
+    print(f"large D: edge environment D={LD8_D} chi_msg={LD8_ENV_CHI_MSG} chi={LD8_ENV_CHI} c128, edge {edge}: "
+          f"single-layer RDM {gap:.3e} from the double-layer one with exact SVDs (tol {SL_ID_TOL:g}), "
+          f"{rsvd_gap:.3e} with the randomized SVD; {secs[True]:.2f} s against {secs[False]:.2f} s; "
+          f"single-layer swallows {json.dumps(swallows)}")
+    if not (gap < SL_ID_TOL and swallows["direct"] > 0 and swallows["sketched"] == 0):
+        raise AssertionError(f"the D={LD8_D} single-layer edge environment: {res}")
+    return res
+
+
+def ld_demo(dev):
+    """Phase 13.4: the entry point ``large_d_demo 7 --sweeps 1`` on the card
+    (χ_msg=98, χ=108, complex64: one single-layer BP sweep, then one ITE
+    edge update through the single-layer environment). It zeroes the
+    launch counts itself and returns its own; its record must be whole,
+    finite and healthy, with K1 launched."""
+    import math
+
+    from kagomeperiodicbp_tpu_torch import large_d_demo
+
+    rec = large_d_demo.main([str(LD7_D), "--sweeps", "1", "--device", str(dev)])
+    ok = ("error" not in rec and rec["bp_sweeps"] == 1 and rec["single_layer"]
+          and rec["single_layer_env"] and math.isfinite(rec["energy"])
+          and abs(rec["ite_health"]["sum_eigenvalues"] - 1) < C64_TOL
+          and rec["launches"]["fused_tensor"] >= 1)
+    print(f"large D: large_d_demo {LD7_D} --sweeps 1: {rec['s_per_sweep']:.2f} s per sweep, error "
+          f"{rec['bp_err']:.3e}, edge update {rec['ite_step_s']:.2f} s, energy {rec['energy']:.8f}, peak "
+          f"{rec['peak_device_gb']:.2f} GB; launches {json.dumps(rec['launches'])}")
+    if not ok:
+        raise AssertionError(f"large_d_demo {LD7_D} failed on the card: {rec}")
+    return rec
+
+
+def ld_k2_checks(torch, K, dev, k_seen):
+    """Phase 13.6, after the launch counts are read: K2 at every size the D=8
+    gram call gave it, in complex64 on SPD matrices drawn on the card,
+    against its plain version (K2_TOL); at the largest k, and at D=7's
+    largest (D²·χ = 5292 at χ=108), timed beside the plain version and the
+    library call (cholesky_ex + solve_triangular)."""
+    c64 = torch.complex64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k7 = LD7_D ** 2 * LD7_CHI
+    out, k_max = {}, max(k_seen)
+    for k in sorted(set(k_seen) | {k7}):
+        b = torch.randn((k, k), generator=gen, dtype=c64, device=dev)
+        g = b @ b.mH + k * torch.eye(k, dtype=c64, device=dev)
+        l, w = K.chol_inv_cuda(g)
+        l_ref, w_ref = K.chol_inv_ref(g)
+        err = max(((l - l_ref).abs().max() / l_ref.abs().max()).item(),
+                  ((w - w_ref).abs().max() / w_ref.abs().max()).item())
+        row = {"calls": k_seen.get(k, 0), "variant": K.chol_inv_plan(k, c64).variant, "rel_err": err,
+               "max_abs_err": max((l - l_ref).abs().max().item(), (w - w_ref).abs().max().item())}
+        if k in (k7, k_max):
+            row["ms"] = _ms(torch, lambda: K.chol_inv_cuda(g))
+            row["plain_ms"] = _ms(torch, lambda: K.chol_inv_ref(g))
+            row["library_ms"] = _ms(torch, lambda: _library(torch, g))
+            row["bound_ms"], row["bound_by"] = bound(*chol_inv_work(k, c64, torch))
+        out[str(k)] = row
+        del b, g, l, w, l_ref, w_ref
+    worst = max(r["rel_err"] for r in out.values())
+    print(f"large D: K2 at each D={LD8_D} gram size {sorted(k_seen)} and at k={k7}, complex64, against its "
+          f"plain version: largest rel_err {worst:.3e} (tol {K2_TOL['complex64']:g})")
+    for k in (k7, k_max):
+        top = out[str(k)]
+        print(f"large D: K2 at k={k} ({top['variant']}): kernel {top['ms']:.3f} ms, plain "
+              f"{top['plain_ms']:.3f} ms, library (cholesky_ex + solve_triangular) "
+              f"{top['library_ms']:.3f} ms, bound {top['bound_ms']:.3f} ms ({top['bound_by']})")
+    if not worst < K2_TOL["complex64"]:
+        raise AssertionError(f"K2 disagrees with its plain version at a D={LD8_D} gram size: {out}")
+    return out
+
+
+def ld_records(torch, dev):
+    """Phase 13.5: measure_padded at D=3 from the repository's D=2
+    record (--no-store, no noise, the complex64 search with its complex128
+    polish), its energy beside the record's; bp_accuracy (D=2, N=2; the
+    random environment's messages drawn once with numpy, given to both) and
+    load_external_su (a tnsu-format set of a numpy-drawn D=2 cell, written
+    here), each on the card against the CPU port in complex128."""
+    import tempfile
+
+    from kagomeperiodicbp_tpu_torch import bp_accuracy, load_external_su, measure_padded
+    from kagomeperiodicbp_tpu_torch.convert import (messages_from_numpy, numpy_product_messages,
+                                                    numpy_random_cell, unit_cell_from_numpy)
+    from kagomeperiodicbp_tpu_torch.utils.foreign import write_tnsu
+
+    out = {}
+    before = sorted(os.listdir(BEST_STORE))
+    t0 = time.perf_counter()
+    pad = measure_padded.main(["-D", "3", "--src", "2", "--noise", "0", "--no-store", "--bp-dtype",
+                               "complex64", "--store-dir", BEST_STORE, "--device", str(dev)])
+    gap = abs(pad["mean_energy"] - pad["src_energy"])
+    out["measure_padded"] = {**pad, "gap_to_record": gap, "wall_s": time.perf_counter() - t0}
+    print(f"records: measure_padded D=3 from the D=2 record: {pad['mean_energy']!r} beside the record's "
+          f"{pad['src_energy']!r} ({gap:.3e}, tol {REC_PAD_TOL:g}); BP {pad['bp_mode']}, error "
+          f"{pad['bp_error']:.3e}; {out['measure_padded']['wall_s']:.2f} s")
+    if sorted(os.listdir(BEST_STORE)) != before or not gap < REC_PAD_TOL:
+        raise AssertionError(f"measure_padded at D=3 failed: {out['measure_padded']}")
+
+    D, N = 2, 2
+    cell_np = numpy_random_cell(D, 0)
+    msgs_np = numpy_product_messages(N, D, 2 * D * D, 11)
+    rows, secs = {}, {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        rows[label] = bp_accuracy.accuracy_rows(
+            unit_cell_from_numpy(cell_np, where), N, 2 * D * D, REC_EXACT_CHI,
+            messages_from_numpy(msgs_np, where), log=lambda *_: None)
+        secs[label] = time.perf_counter() - t0
+    acc_gap = max(abs(a[k] - b[k]) for a, b in zip(rows["card"], rows["cpu"]) for k in bp_accuracy.DIGITS)
+    out["bp_accuracy"] = {"gap": acc_gap, "rows": len(rows["card"]), "card_s": secs["card"],
+                          "cpu_s": secs["cpu"],
+                          "min_bp_fidelity": min(r["fidelity_vs_exact"] for r in rows["card"]
+                                                 if r["method"] == "bp")}
+    print(f"records: bp_accuracy D={D} N={N} (random, bp, exact × 6 edges), card against the CPU port: "
+          f"{acc_gap:.3e} (tol {REC_TOL:g}); {secs['card']:.2f} s on the card, {secs['cpu']:.2f} s on the CPU; "
+          f"smallest bp fidelity {out['bp_accuracy']['min_bp_fidelity']:.10f}")
+    if not acc_gap < REC_TOL:
+        raise AssertionError(f"bp_accuracy, card against CPU: {out['bp_accuracy']}")
+
+    tn_cell = numpy_random_cell(D, 41)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"tnsu_AFH_D={D}_size=1_PBC.dat")
+        write_tnsu(path, [tn_cell[f] for f in "ABC"])
+        sets = {where: load_external_su.measure_set(path, N=N, device=where) for where in (str(dev), "cpu")}
+    card, cpu = sets[str(dev)], sets["cpu"]
+    su_gap = max([abs(card["edge_energies"][k] - v) for k, v in cpu["edge_energies"].items()]
+                 + [abs(card["mean_energy"] - cpu["mean_energy"])])
+    out["load_external_su"] = {"gap": su_gap, "mean_energy": card["mean_energy"], "chi": card["chi"]}
+    print(f"records: load_external_su on a tnsu-format D={D} set: {card['mean_energy']!r} per site, card "
+          f"against the CPU port {su_gap:.3e} (tol {REC_TOL:g})")
+    if not su_gap < REC_TOL:
+        raise AssertionError(f"load_external_su, card against CPU: {out['load_external_su']}")
     return out
 
 
@@ -2364,13 +2704,46 @@ def main() -> int:
         raise AssertionError(f"the parallel path launched no {missing}")
     took("phase 12")
 
-    # -- 13. results --
+    # -- 13. large D and records: the D=7 padded pin, the D=8 work unit, the
+    #        record entry points --
+    t_13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    L.reset_eigh_retries()
+    reference = {}   # the launches of the D=3 pin's BP and measurement
+    uncounted = lambda fn, *a: MC._uncounted(reference, fn, *a)  # noqa: E731
+    large = {"padded_pin_d7": ld_padded_pin(torch, C, E, CT, MS, BP, UnitCell, hamiltonians,
+                                            uncounted, dev)}
+    large["d8"], k_seen8 = ld_d8(torch, K, L, C, F, CT, UnitCell, BlockSide, UpdateEdge, hamiltonians, dev)
+    large["d8_environment"] = ld_d8_environment(torch, E, IK, L, UpdateEdge, CT, uncounted, dev)
+    seen = K.launch_counts()
+    large["demo_d7"] = ld_demo(dev)   # zeroes the counts and returns its own
+    counts_ld = {n: seen[n] - reference.get(n, 0) + large["demo_d7"]["launches"][n] for n in seen}
+    large["launches"], large["reference_launches"] = counts_ld, reference
+    missing = [n for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked") if counts_ld[n] <= 0]
+    if missing:
+        raise AssertionError(f"the large-D path launched no {missing}")
+    K.reset_launch_counts()
+    large["records"] = ld_records(torch, dev)
+    counts_rec = K.launch_counts()
+    large["records"]["launches"] = counts_rec
+    if counts_rec["fused_tensor"] <= 0:
+        raise AssertionError(f"the record entry points launched no fused_tensor: {counts_rec}")
+    large["k2_by_size"] = ld_k2_checks(torch, K, dev, k_seen8)
+    large["wall_s"] = time.perf_counter() - t_13
+    print(f"large-D and records phase: {large['wall_s']:.1f} s wall; launches large D "
+          f"{json.dumps(counts_ld)} (the D=3 reference's {json.dumps(reference)} left out), records "
+          f"{json.dumps(counts_rec)}")
+    took("phase 13")
+
+    # -- 14. results --
     launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] + counts_sl[n] + counts_ws[n]
-                + counts_b[n] + counts_sq[n] + counts_par[n] for n in counts_default}
+                + counts_b[n] + counts_sq[n] + counts_par[n] + counts_ld[n] + counts_rec[n]
+                for n in counts_default}
     by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n],
                    "single_layer": counts_sl[n], "warm_start": counts_ws[n],
                    "batched_sweep": counts_b[n], "square": counts_sq[n],
-                   "parallel": counts_par[n]}
+                   "parallel": counts_par[n], "large_d": counts_ld[n], "records": counts_rec[n]}
                for n in counts_default}
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     k1 = ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82")
@@ -2390,6 +2763,7 @@ def main() -> int:
     print(json.dumps({"warm_start": {"fused_tensor_operator_by_D": k1_op_cases, **warm}}))
     print(json.dumps({"batched_and_square": phase11}))
     print(json.dumps({"parallel": par}))
+    print(json.dumps({"large_d": large}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -136,6 +136,25 @@ def initial_messages(N: int, D: int, chi: int, model: str = "uniform",
     return msgs
 
 
+def pad_messages(messages: MessageDict, N: int, D: int, chi_msg: int) -> MessageDict:
+    """Messages of a cell padded to bond dimension D (``UnitCell.pad_to``
+    with no noise): each fused leg's ket and bra halves zero-padded to D,
+    the bonds to the canonical profile at D. The padded network holds the
+    same state, so these are its messages."""
+    out = {}
+    for side, m in messages.items():
+        sites = []
+        for s in m.sites:
+            l, p, r = s.shape
+            d0 = int(round(p ** 0.5))
+            t = s.new_zeros((l, D, D, r))
+            t[:, :d0, :d0, :] = s.reshape(l, d0, d0, r)
+            sites.append(t.reshape(l, D * D, r))
+        out[side] = mpslib.pad_bonds(MPS(tuple(sites), m.logscale),
+                                     message_bond_profile(N, D, chi_msg))
+    return out
+
+
 def finalize_outgoing(raw: MPS, plan: Plan, graph_boundary_count: int) -> MPS:
     """Fold the dim-1 corner end sites of a raw ToMessage frontier into
     their neighbours."""

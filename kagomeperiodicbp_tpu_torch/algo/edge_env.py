@@ -33,7 +33,7 @@ from ..enums import UpdateEdge
 from ..lattices import BlockSide, KagomeBlock, LatticeDir
 from ..networks.graph import TNGraph
 from ..networks.unit_cell import UnitCell
-from ..ops.contract import execute_plan
+from ..ops.contract import _blob_elem_limit, execute_plan
 from ..ops.mps import MPS
 from ..planner.compiler import Plan, compile_plan
 from . import contraction as C
@@ -227,20 +227,49 @@ def _norm_rescale(x, logs):
     return x / n, logs + torch.log(n)
 
 
+def env_single_layer(D: int, chi: int, chi_msg: int) -> bool:
+    """Whether the edge environment's boundary plans run single-layer: where
+    the double-layer plan's largest blob would exceed the executor's blob
+    limit (``ops/contract._blob_elem_limit``: ``KPBP_BLOB_LIMIT``, 3e8
+    elements by default). That blob is the first product of a two-in-leg
+    swallow, a fused node [D², D², D², D²] against the frontier site before
+    it, [D², D², D², a, b], with its bonds a ≈ χ_msg and b ≈ χ: a·b·D⁶
+    elements,
+
+    ====  ==========  =======  =======  =============
+    D     χ_msg / χ   a·b·D⁶   c64      contracts
+    ====  ==========  =======  =======  =============
+    6     72 / 82     2.75e8   2.2 GB   double-layer
+    6     144 / 164   1.1e9    8.8 GB   single-layer
+    7     98 / 108    1.25e9   10 GB    single-layer
+    8     128 / 138   4.6e9    37 GB    single-layer
+    ====  ==========  =======  =======  =============
+
+    so the ITE update at D=6 (χ = 2D²+10) and every test size stay
+    double-layer, while a D=6 measurement at the production χ×2, and every
+    environment from D=7, swallows single-layer. Every lattice step of these
+    plans takes two or three in-legs, so none is eligible for the sketched
+    swallow, which takes one: single-layer, each goes through its blob."""
+    return chi_msg * chi * D ** 6 > _blob_elem_limit()
+
+
 def edge_environment_sites(cells, msg_sites, N: int, chi: int, chi_msg: int,
-                           edge: UpdateEdge, single_layer: bool = False):
+                           edge: UpdateEdge, single_layer: Optional[bool] = None):
     """The edge environment of one edge class.
 
     * cells — (A, B, C) ket tensors, or one per block site;
     * msg_sites — dict side-int → tuple of message site tensors;
     * single_layer — run the top and bottom boundary plans single-layer
-      (large-D memory); the chain ladder still takes the three fused tensors.
+      (large-D memory); the chain ladder still takes the three fused
+      tensors. None: by the blob rule of ``env_single_layer``.
 
     Returns (t1, t2, env, (perm1, perm2)) — see `edge_environment`. The
     fused tensors come from one launch of kernel K1 per three kets on the
     card.
     """
     D = cells[0].shape[1]
+    if single_layer is None:
+        single_layer = env_single_layer(D, chi, chi_msg)
     block = KagomeBlock.build(N)
     geo = edge_geometry(N, D, chi, chi_msg, edge.direction())
     n1, n2 = edge_pair(block, edge)

@@ -22,6 +22,8 @@ from .algo.arbitrary import ArbitraryKagomeTN
 from .algo.bp import BPConfig, BPStats
 from .enums import UpdateMode
 from .lattices import BlockSide
+from .lattices.kagome import num_message_sites
+from .networks.graph import message_bond_profile
 from .networks.unit_cell import FLAVORS, NumpyUnpickler, UnitCell
 from .ops.mps import MPS, from_sites
 from .square.lattice import SquareSide
@@ -70,6 +72,41 @@ def messages_from_numpy(sites: Mapping[int, Sequence[np.ndarray]], device=None,
     """Messages with zero logscale from {side_int: [site arrays]}."""
     return {BlockSide(int(s)): from_sites([_tensor(a, device, dtype) for a in ss])
             for s, ss in sites.items()}
+
+
+def numpy_random_cell(D: int, seed: int, d: int = 2) -> dict:
+    """The save dict of a random cell drawn with numpy from `seed`: iid
+    Gaussian real and imaginary parts, each tensor of unit norm (the
+    distribution of ``UnitCell.random``), the same numbers on every device
+    and in either package."""
+    rng = np.random.default_rng(seed)
+
+    def one():
+        t = rng.standard_normal((d,) + (D,) * 4) + 1j * rng.standard_normal((d,) + (D,) * 4)
+        return t / np.linalg.norm(t)
+
+    return {"A": one(), "B": one(), "C": one(), "rotated": 0}
+
+
+def numpy_product_messages(N: int, D: int, chi: int, seed: int) -> Dict[int, List[np.ndarray]]:
+    """{side_int: [site arrays]}: the "random" message model (a product of
+    vectorised |v⟩⟨v|, one random unit v per site, as
+    ``ops/mps.random_message``) drawn with numpy from `seed`, its bonds
+    zero-padded to the canonical profile."""
+    rng = np.random.default_rng(seed)
+    n = num_message_sites(N)
+    bonds = [1] + message_bond_profile(N, D, chi) + [1]
+    out = {}
+    for side in BlockSide:
+        sites = []
+        for k in range(n):
+            v = rng.standard_normal(D) + 1j * rng.standard_normal(D)
+            v /= np.linalg.norm(v)
+            site = np.zeros((bonds[k], D * D, bonds[k + 1]), complex)
+            site[0, :, 0] = np.outer(v, v.conj()).reshape(-1)
+            sites.append(site)
+        out[int(side)] = sites
+    return out
 
 
 def chain_cells_from_numpy(cells: Sequence[Mapping], device=None,

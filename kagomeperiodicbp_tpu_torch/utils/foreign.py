@@ -68,6 +68,36 @@ def load_tnsu(path: str) -> dict:
     }
 
 
+def write_tnsu(path, tensors, final_energy=None, **attrs) -> str:
+    """Write a tnsu-format set: the foreign package's TensorNetwork object
+    with `tensors` (leg order [d, 1..4]), unit weights and `final_energy`
+    (and any other attributes in `attrs`), pickled under the foreign
+    module's name, which need not be importable. Returns the path."""
+    import sys
+    import types
+
+    mod = types.ModuleType("tnsu.tensor_network")
+    cls = type("TensorNetwork", (), {"__module__": mod.__name__})
+    mod.TensorNetwork = cls
+    obj = cls()
+    obj.tensors = list(tensors)
+    obj.weights = [np.ones(t.shape[1]) for t in obj.tensors]
+    obj.final_energy = None if final_energy is None else np.float64(final_energy)
+    obj.__dict__.update(attrs)
+    saved = {name: sys.modules.get(name) for name in ("tnsu", mod.__name__)}
+    sys.modules.update({"tnsu": types.ModuleType("tnsu"), mod.__name__: mod})
+    try:
+        with open(path, "wb") as fh:
+            pickle.dump(obj, fh)
+    finally:
+        for name, was in saved.items():
+            if was is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = was
+    return str(path)
+
+
 def tnsu_unit_cell(D: int, dtype: torch.dtype = torch.complex128,
                    folder: str = DEFAULT_TNSU_FOLDER, path: str | None = None, device=None):
     """The published size=1 PBC tnsu SU state at bond dimension D (or the

@@ -563,3 +563,33 @@ def test_complex64_sweep_on_rank_deficient_blobs_on_card(cuda, batched):
     for s, ss in new[torch.complex64].items():
         a = mpslib.from_sites([x.to(torch.complex128) for x in ss])
         assert float(mpslib.distance(a, mpslib.from_sites(new[torch.complex128][s]))) < 2e-5
+
+
+@pytest.mark.cuda
+def test_padded_pin_d7_single_layer_environment_on_card(cuda, monkeypatch):
+    """The pin cell padded to D=7 with no noise, and its BP messages (N=2,
+    χ_msg=18, complex128) padded alike, measured at χ=28 through the
+    single-layer edge environment (every swallow through its blob; at this
+    χ the blob rule would keep it double-layer, so the rule is set to
+    single-layer): the six edge energies of the unpadded pin at the same N
+    and χ, to 1e-8 (the bar of chip_smoke.py phase 13, which runs χ 98/108,
+    where the rule picks single-layer)."""
+    import os
+
+    from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig, robust_belief_propagation
+    from kagomeperiodicbp_tpu_torch.algo.measurements import measure_energies_and_observables
+
+    pin_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "pin_D3.pkl")
+    pin = UnitCell.load(pin_path, device=cuda).astype(torch.complex128)
+    h = hamiltonians.heisenberg_afm()
+    msgs, stats = robust_belief_propagation(pin, None, BPConfig(trunc_dim=18), 2)
+    assert stats.success
+    want = measure_energies_and_observables(pin, msgs, 2, 28, 18, h)
+    monkeypatch.setattr(E, "env_single_layer", lambda D, chi, chi_msg: True)
+    CT.reset_swallow_counts()
+    got = measure_energies_and_observables(pin.pad_to(7, noise_fraction=0),
+                                           C.pad_messages(msgs, 2, 7, 18), 2, 28, 18, h)
+    counts = CT.swallow_counts()
+    assert counts["direct"] > 0 and counts["fused"] == 0 and counts["sketched"] == 0
+    for k, v in want.energies.items():
+        assert abs(got.energies[k] - v) < 1e-8

@@ -20,6 +20,7 @@ contraction costs seconds, so where a port path is held to the JAX package
 through another port path (single- against double-layer), the test says so.
 """
 import dataclasses
+import functools
 import math
 import os
 
@@ -33,6 +34,7 @@ from kagomeperiodicbp_tpu.algo import bp as JBP
 from kagomeperiodicbp_tpu.algo import contraction as JC
 from kagomeperiodicbp_tpu.algo import edge_env as JE
 from kagomeperiodicbp_tpu.algo import fused as JF
+from kagomeperiodicbp_tpu.enums import UpdateEdge as JUpdateEdge
 from kagomeperiodicbp_tpu.lattices import BlockSide as JBlockSide
 from kagomeperiodicbp_tpu.networks.unit_cell import UnitCell as JUnitCell
 from kagomeperiodicbp_tpu.ops import contract as JK
@@ -371,22 +373,39 @@ def test_bp_fixed_point_single_layer():
         assert float(mpslib.distance(msgs[side], msgs_d[side])) < 1e-7
 
 
-def test_edge_environment_single_layer_matches_jax():
-    """edge_environment_sites(single_layer=True) on edge (A,B): the pair's
-    RDM and its energy as the JAX package's, and as the port's
+@functools.lru_cache(maxsize=None)
+def _jax_single_layer_rhos():
+    """The JAX package's single-layer pair RDMs of the six edges (N=2, D=2,
+    χ=8), in one jitted program."""
+    N, D, chi = 2, 2, 8
+    cell_np, msgs_np = numpy_cell(D, 6), numpy_messages(N, D, chi, seed=9)
+
+    def jax_rhos(cells, sites):
+        out = []
+        for edge in JUpdateEdge.all_options():
+            t1, t2, env, _ = JE.edge_environment_sites(cells, sites, N, chi, chi, edge,
+                                                       single_layer=True)
+            out.append(JIK.rho_ij(t1, t2, env))
+        return out
+
+    rhos = jax.jit(jax_rhos)(tuple(jnp.asarray(cell_np[f]) for f in "ABC"),
+                             {s: tuple(map(jnp.asarray, ss)) for s, ss in msgs_np.items()})
+    return [np.asarray(r) for r in rhos]
+
+
+@pytest.mark.parametrize("i", range(6), ids=[str(e) for e in UpdateEdge.all_options()])
+def test_edge_environment_single_layer_matches_jax(i):
+    """edge_environment_sites(single_layer=True) on each edge (N=2, D=2,
+    χ=8: the messages' bonds are 4, so the boundary plans truncate): the
+    pair's RDM and its energy as the JAX package's, and as the port's
     double-layer ones."""
     N, D, chi = 2, 2, 8
     cell_np = numpy_cell(D, 6)
     msgs_np = numpy_messages(N, D, chi, seed=9)
     h = hamiltonians.heisenberg_afm()
-    edge = UpdateEdge.all_options()[0]
-
-    def jax_rho(cells, sites):
-        t1, t2, env, _ = JE.edge_environment_sites(cells, sites, N, chi, chi, edge, single_layer=True)
-        return JIK.rho_ij(t1, t2, env)
-
-    rho_j = np.asarray(jax.jit(jax_rho)(tuple(jnp.asarray(cell_np[f]) for f in "ABC"),
-                                        {s: tuple(map(jnp.asarray, ss)) for s, ss in msgs_np.items()}))
+    edge = UpdateEdge.all_options()[i]
+    assert str(JUpdateEdge.all_options()[i]) == str(edge)
+    rho_j = _jax_single_layer_rhos()[i]
     cells = tuple(_t(cell_np[f]) for f in "ABC")
     sites = {s: tuple(_t(x) for x in ss) for s, ss in msgs_np.items()}
     e_j = complex(np.einsum("iIjJ,iIjJ->", rho_j, h))

@@ -20,7 +20,6 @@ import os
 import pickle
 import subprocess
 import sys
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -132,29 +131,9 @@ def test_run_ite_su_start(seed, monkeypatch):
 
 
 def _tnsu_pickle(path, tensors, final_energy=None):
-    """A tnsu-format set: the foreign package's TensorNetwork object with
-    its tensors and weights, pickled under the foreign module's name (which
-    neither package can import)."""
-    mod = types.ModuleType("tnsu.tensor_network")
-
-    class TensorNetwork:
-        pass
-
-    TensorNetwork.__module__, TensorNetwork.__qualname__ = mod.__name__, "TensorNetwork"
-    mod.TensorNetwork = TensorNetwork
-    obj = TensorNetwork()
-    obj.tensors = tensors
-    obj.weights = [np.ones(t.shape[1]) for t in tensors]
-    obj.virtual_dim = 99   # stale on some published sets: D comes from the tensors
-    obj.final_energy = None if final_energy is None else np.float64(final_energy)
-    sys.modules.update({"tnsu": types.ModuleType("tnsu"), mod.__name__: mod})
-    try:
-        with open(path, "wb") as fh:
-            pickle.dump(obj, fh)
-    finally:
-        for name in ("tnsu", mod.__name__):
-            sys.modules.pop(name, None)
-    return str(path)
+    """A tnsu-format set (``foreign.write_tnsu``), its `virtual_dim` stale
+    as on some published sets: D comes from the tensors."""
+    return foreign.write_tnsu(path, tensors, final_energy, virtual_dim=99)
 
 
 def test_load_tnsu_matches_jax(tmp_path):
@@ -262,9 +241,10 @@ print(json.dumps({"modules": names,
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port, the batched sweep, the square lattice,
-    run_square, the plots and the distribution layer among them, and
-    chip_smoke.py import in a fresh process without JAX or the JAX package,
-    and without matplotlib (the plots import it when they draw)."""
+    run_square, the plots, the distribution layer, the large-D and record
+    entry points and the tools among them, and chip_smoke.py import in a
+    fresh process without JAX or the JAX package, and without matplotlib
+    (the plots import it when they draw)."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
@@ -273,5 +253,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {pkg + m for m in ("algo.batched", "square", "square.lattice", "square.algo",
                               "square.fullupdate", "run_square", "visualizations.plots",
                               "parallel.launch", "parallel.multichip", "parallel.chi_shard",
-                              "parallel.sweep", "utils.csvs", "run_sweep")} <= set(got["modules"])
+                              "parallel.sweep", "utils.csvs", "run_sweep", "large_d_demo",
+                              "measure_padded", "bp_accuracy", "load_external_su", "compare_cells",
+                              "chip_accuracy", "tools", "tools.profile_bp_phases",
+                              "tools.sketch_rank_curve")} <= set(got["modules"])
     assert len(got["modules"]) > 30 and got["imported"] == [] and not got["matplotlib"]

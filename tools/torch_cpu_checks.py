@@ -35,9 +35,19 @@ the JAX package and its PyTorch port, complex128 unless stated:
    package's run of the same steps in tests/assets/square_D3.npz
    (``rs_energy``), beside the square AFM's Néel and exact energies.
 
+5. ``pad`` — where measure_padded's energies at a zero pad move: the D=2
+   record (data/unit_cells/best) padded to D=3 with no noise and measured
+   as ``-D 3 --src 2 -N 1 --chi-factor 1`` does (N=2, χ_bp=18, χ=28,
+   complex128). The JAX package's energies at --noise 0 against its own
+   at --noise 1e-15 (seeds 0 and 1) and against the port's; then, in the
+   JAX package, the measurement alone on the two cells with one set of
+   messages, the port's measurement on the JAX messages, BP run on to an
+   error of 1e-14, BP at χ_bp 8 and 24, and the unpadded D=2 cell at
+   χ_bp=18, each under the same 1e-15 move.
+
 Prints one JSON line per part.
 
-Usage: python tools/torch_cpu_checks.py [sketch|c64|batched|square|all] [NUDGES]
+Usage: python tools/torch_cpu_checks.py [sketch|c64|batched|square|pad|all] [NUDGES]
 """
 import json
 import os
@@ -218,10 +228,77 @@ def square() -> dict:
     return {"D3_energy": {"port": e, "jax": want, "gap": abs(e - want)}, "neel": -0.5, "exact": -0.6694}
 
 
+def pad() -> dict:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from kagomeperiodicbp_tpu.algo.bp import BPConfig as JBPConfig
+    from kagomeperiodicbp_tpu.algo.bp import robust_belief_propagation as jax_bp
+    from kagomeperiodicbp_tpu.algo.measurements import measure_energies_and_observables as jax_measure
+    from kagomeperiodicbp_tpu.networks.unit_cell import UnitCell as JUnitCell
+    from kagomeperiodicbp_tpu.physics import hamiltonians as jax_hamiltonians
+    from kagomeperiodicbp_tpu_torch.algo.bp import BPConfig
+    from kagomeperiodicbp_tpu_torch.algo.bp import robust_belief_propagation
+    from kagomeperiodicbp_tpu_torch.algo.measurements import measure_energies_and_observables
+    from kagomeperiodicbp_tpu_torch.convert import messages_from_numpy, unit_cell_from_numpy
+
+    record = os.path.join(ROOT, "data", "unit_cells", "best", "D=2 energy=-0.40239300631851055.pkl")
+    n, chi_bp, chi = 2, 18, 28
+    h = jax_hamiltonians.BY_NAME["AFM"]()
+    src = JUnitCell.load(record).astype(jnp.complex128)
+
+    def padded(noise, seed=0, D=3):
+        return src.pad_to(D, noise_fraction=noise, key=jax.random.PRNGKey(seed)).force_zero_rotation()
+
+    def energies(meas):
+        return np.array([float(v) for v in meas.energies.values()] + [meas.mean_energy])
+
+    def jax_run(cell, trunc=chi_bp, **bp):
+        cfg = dataclasses.replace(JBPConfig(trunc_dim=trunc, dtype=jnp.complex128).for_measurements(1.0), **bp)
+        msgs, stats = jax_bp(cell, None, cfg, n)
+        return msgs, stats, energies(jax_measure(cell, msgs, n, chi, trunc, h))
+
+    def move(a, b):
+        """(largest edge move, mean move)"""
+        return {"edge": float(np.abs(a[:-1] - b[:-1]).max()), "mean": float(abs(a[-1] - b[-1]))}
+
+    c0 = padded(0)
+    m0, s0, e0 = jax_run(c0)
+    out = {"config": {"N": n, "chi_bp": chi_bp, "chi": chi, "D": 3, "src_D": 2},
+           "jax_bp_error": s0.final_error, "jax_iterations": s0.iterations}
+    for seed in (0, 1):
+        out[f"jax_noise_1e-15_seed{seed}"] = move(jax_run(padded(1e-15, seed))[2], e0)
+    cell_np = {f: np.asarray(getattr(c0, f)) for f in "ABC"}
+    tc = unit_cell_from_numpy(cell_np)
+    tm, ts = robust_belief_propagation(tc, None, BPConfig(trunc_dim=chi_bp, dtype=torch.complex128)
+                                       .for_measurements(1.0), n)
+    out["port_vs_jax"] = move(energies(measure_energies_and_observables(tc, tm, n, chi, chi_bp, h)), e0)
+    out["port_bp_mode"] = ts.mode
+    tm_j = messages_from_numpy({int(k): [np.asarray(x) for x in m.sites] for k, m in m0.items()})
+    out["port_measure_on_jax_messages"] = move(
+        energies(measure_energies_and_observables(tc, tm_j, n, chi, chi_bp, h)), e0)
+    out["jax_measure_only_noise_1e-15"] = move(energies(jax_measure(padded(1e-15), m0, n, chi, chi_bp, h)), e0)
+    for name, kw in (("jax_bp_to_1e-14", {"msg_diff_terminate": 1e-14, "max_iterations": 60}),
+                     ("jax_chi_bp_8", {"trunc": 8}), ("jax_chi_bp_24", {"trunc": 24})):
+        trunc = kw.pop("trunc", chi_bp)
+        a = jax_run(c0, trunc, **kw)[2]
+        b = jax_run(padded(1e-15), trunc, **kw)[2]
+        out[name + "_noise_1e-15"] = move(b, a)
+    unpadded = src.force_zero_rotation()
+    a = jax_run(unpadded)[2]
+    b = jax_run(unpadded.add_noise(1e-15, key=jax.random.PRNGKey(0)))[2]
+    out["jax_unpadded_D2_noise_1e-15"] = move(b, a)
+    return out
+
+
 def main() -> None:
     part = sys.argv[1] if len(sys.argv) > 1 else "all"
     nudges = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    if part not in ("sketch", "c64", "batched", "square", "all"):
+    if part not in ("sketch", "c64", "batched", "square", "pad", "all"):
         raise SystemExit(__doc__)
     import jax
 
@@ -238,6 +315,8 @@ def main() -> None:
         print(json.dumps({"batched": batched()}))
     if part in ("square", "all"):
         print(json.dumps({"square": square()}))
+    if part in ("pad", "all"):
+        print(json.dumps({"pad": pad()}))
 
 
 if __name__ == "__main__":
