@@ -18,9 +18,13 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    dtypes;
 4. the slice in complex128 — production_measurement of tests/assets/pin_D3.pkl
    (BP at N=3, χ=36, then the six edge RDMs at χ=56), once with the default
-   linear algebra and once with KPBP_LINALG=gram, against pin_D3.json; then
-   K2 at every size the gram run gave it, against its plain version and the
-   library call (torch.linalg.cholesky_ex + solve_triangular);
+   linear algebra and once with KPBP_LINALG=gram, against pin_D3.json (a
+   gap over the bar passes below 1e-6 only beside a measured cause of that
+   size: the gram linear algebra, by these two runs, or the randomized
+   SVD's sketch, by a third run with another sketch, made only where no
+   other cause is measured); then K2 at every size the gram run gave it,
+   against its plain version and the library call
+   (torch.linalg.cholesky_ex + solve_triangular);
 5. the slice in complex64, against the complex128 run (bar 1e-3);
 6. one BP sweep at N=2, D=3, χ=18 in complex64, timed;
 7. torch.profiler over one gram BP sweep at the pin's BP size (N=3, χ=36,
@@ -32,8 +36,8 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    K2's launches per update and a profile of one update; the complex128
    update on the card against the CPU port (default and gram) on what the
    bond gauge leaves fixed; a short full_ite (random D=3 cell, 2 segments
-   at dt=0.1, one mode each, BP once per segment) that must lower the
-   energy with no ITEError;
+   at dt=0.1, one mode each, BP once per segment, to a stop of 1e-6) that
+   must lower the energy with no ITEError;
 9. single-layer swallowing, the BP path the JAX package takes from D=6, at
    the production χ of tools/large_d_demo.py (D=6, N=2, χ_msg=72, χ=82):
    the double-layer and the single-layer message (every swallow through its
@@ -56,10 +60,11 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    then, launches counted, the simple update of tests/assets/su_q0_D3.pkl
    (D=3, complex128, the default ladder less its dt=0.1 block: from this
    seed the default ladder moves by O(0.1) under a 1e-15 change in the JAX
-   package too) against the JAX package's λ and its block measurements at N=2 and 3 against the JAX script's rows
+   package too) against the JAX package's λ and its block measurements at
+   N=2 and, under KPBP_LINALG=gram, N=3 against the JAX script's rows
    (su_q0_D3.json, tools/make_su_pin.py), one N=2 measurement under
-   KPBP_LINALG=gram; the simple update at D=6 in complex64 and complex128
-   over a cut ladder, timed; measure_xyz_sandwich on the pin cell at N=2,
+   KPBP_LINALG=gram against the default one; the simple update at D=6 in
+   complex64 and complex128 over a cut ladder, timed; measure_xyz_sandwich on the pin cell at N=2,
    card against the CPU port, with 1 + 3 K1 launches, and at the pin's
    production convention beside the RDM path's ⟨x, y, z⟩; BP from
    random-classic messages; an arbitrary block tiled from the pin cell
@@ -76,16 +81,17 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    where the batched sweep launches K2 a third as often, variant by
    variant, with K2 then held to its plain version at every (3, k) size it
    took; at D=5, χ_msg=50, χ=60, from dense random messages, a batched
-   and a per-side sweep and a second batched sweep in complex64, timed with
-   peak memory, then one class of the batched sweep against the per-side
-   body in complex128 with exact SVDs, held; then the square lattice
+   and a per-side sweep in complex64, timed with peak memory, then one
+   class of the batched sweep against the per-side body in complex128
+   with exact SVDs, held; then the square lattice
    (square/*, run_square): the JAX package's values at n=4, m=2, D=2
    (tests/assets/square_D2.npz) and the simple update from its start, card
    against CPU; run_square at D=4, χ 32/42 in complex128 and complex64, its
    SU ladder cut, each step timed with K1's launches (plain and operator
    form); at D=3 the simple update from the JAX package's start, BP and
    the energy against its values (tests/assets/square_D3.npz), then a
-   full-update polish that must lower the energy; one square
+   full-update polish (two stages, each BP cut to 6 sweeps) that must
+   lower the energy; one square
    BP under KPBP_LINALG=gram, on K2;
 12. the distribution layer (parallel/*), every group's ranks sharing
    cuda:0 over gloo (parallel/launch prints the backend and each rank's
@@ -121,11 +127,22 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    load_external_su at D=2, card against the CPU port; then, the launch
    counts read, K2 held to its plain version at every size the D=8 gram
    call gave it, timed beside the library call at the largest;
-14. a JSON line with K1's cases by D, one with the ITE numbers, one with
+14. the port's own work: tools.bench_scaling at D=2…5 as a command of
+   its own, which must exit 0 with the batched sweep at every D, K1 once
+   per D and K2 never; the flop model (tools/flops_model) at the JAX
+   tool's configuration (N=2, D=3, χ=18, complex64): the batched sweep
+   (bench_scaling's D=3 row), the per-side sweep and the ITE edge update
+   counted on the card, each equal to the CPU's count of the same call as
+   integers, beside data/flops_model.json's XLA count, and phase 6's and
+   phase 8's times as achieved GFLOP/s and a share of the FP32 peak;
+   create_kagome_elists, plot_afmh_benchmark (its table; the card's
+   machine has no matplotlib, so no --plot) and unpack_ite_tracker (on
+   phase 8's full_ite tracker, --out read back), each as a command;
+15. a JSON line with K1's cases by D, one with the ITE numbers, one with
    the single-layer numbers, one with the warm-start numbers, one with
-   phase 11's, one with phase 12's, one with phase 13's, then one with every
-   kernel's launches on the main paths, error, times and bound; the card's
-   name and power limit; then the result line.
+   phase 11's, one with phase 12's, one with phase 13's, one with phase
+   14's, then one with every kernel's launches on the main paths, error,
+   times and bound; the card's name and power limit; then the result line.
 
 A kernel's device time per call comes from CUDA events around calls that
 wait behind a device-side sleep, so that the host wrapper's time drops
@@ -142,12 +159,13 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIN_CELL = os.path.join(REPO, "tests", "assets", "pin_D3.pkl")
 PIN_GOLD = os.path.join(REPO, "tests", "assets", "pin_D3.json")
 
 PIN_TOL = 1e-9        # the JAX package's pin test bar
-SKETCH_TOL = 1e-6     # ceiling when a measured cause (the sketch) explains the gap
+SKETCH_TOL = 1e-6     # ceiling when a measured cause (the sketch, the gram algebra) explains the gap
 C64_TOL = 1e-3        # complex64 energy bar of the c64 dry run
 K1_TOL = {"float32": 1e-6, "float64": 1e-14,      # absolute, unit-norm ket
           "complex64": 1e-6, "complex128": 1e-14}
@@ -212,26 +230,31 @@ def device_events(torch, prof):
             for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
 
 
-def device_ms(torch, fn, calls=20, sleep_cycles=20_000_000):
+def device_ms(torch, fn, calls=20, sleep_cycles=20_000_000, tries=4):
     """Device time per call of `fn`: CUDA events around `calls` calls queued
     behind a device-side sleep (~10 ms), so the host has enqueued them all
-    before the first one runs and its wrapper time drops out."""
+    before the first one runs and its wrapper time drops out. Where the host
+    took longer to enqueue them than the device slept, the sleep doubles and
+    the calls run again, up to `tries` times in all."""
     fn()
     torch.cuda.synchronize()
-    before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    before.record()
-    torch.cuda._sleep(sleep_cycles)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    if not host_ms < before.elapsed_time(start):
-        raise AssertionError(f"device_ms: the host took {host_ms:.2f} ms to enqueue, longer than "
-                             f"the device slept; the time would include the host's gaps")
-    return start.elapsed_time(end) / calls
+    for _ in range(tries):
+        before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        before.record()
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if host_ms < before.elapsed_time(start):
+            return start.elapsed_time(end) / calls
+        sleep_cycles *= 2
+    raise AssertionError(f"device_ms: the host took {host_ms:.2f} ms to enqueue, longer than "
+                         f"the device slept in each of {tries} tries; the time would include "
+                         f"the host's gaps")
 
 
 def fused_library(torch, t):
@@ -471,7 +494,7 @@ def profile_gram_sweep(torch, C, F, UnitCell, dev):
 
 # the JAX bench's ITE configuration (bench.py, ite_steps_per_second)
 ITE_N, ITE_CHI, ITE_CHI_MSG, ITE_DT, ITE_ALS = 2, 28, 18, 1e-3, 10
-ITE_REPS = 5          # timed updates after one warm-up
+ITE_REPS = 3          # timed updates after one warm-up (cut from 5 for phase 14's time)
 ITE_TOL = 1e-10       # card against CPU, complex128
 # θ and |t'| go through ALS solves whose conditioning amplifies round-off
 # (the reduced environment's rj⁻ᵀ, ROADMAP queue 3): there the gap is held to
@@ -641,23 +664,32 @@ def ite_card_vs_cpu(torch, F, E, IK, edge, inputs, dev):
     return out
 
 
+# the short full_ite's BP stop (BPConfig's default 1e-10; its measurements
+# stop at half of it): cut for phase 14's time, as its energy falls by
+# 2.2e-2 over the two segments (an H100 took 47.8 s at 1e-10, 30.3 s at 1e-6)
+FULL_ITE_BP_STOP = 1e-6
+
+
 def short_full_ite(torch, I, BPConfig, hamiltonians, dev):
     """full_ite from a seeded random D=3 cell on the card, complex128: two
-    segments at dt=0.1, one mode each, BP once per segment, measured after
-    each. It must end with no ITEError and a lower energy than it began."""
+    segments at dt=0.1, one mode each, BP once per segment (to
+    FULL_ITE_BP_STOP), measured after each. It must end with no ITEError
+    and a lower energy than it began. Returns its result and its tracker."""
     cfg = I.ITEConfig(hamiltonian=hamiltonians.heisenberg_afm, time_steps=[0.1, 0.1],
                       num_mode_repetitions_per_segment=1, bp_every_edge=False, seed=0)
     t0 = time.perf_counter()
     _, _, tr = I.full_ite(None, cfg, N=ITE_N, D=3, chi=ITE_CHI,
-                          bp_config=BPConfig(trunc_dim=ITE_CHI_MSG), device=dev)
+                          bp_config=BPConfig(trunc_dim=ITE_CHI_MSG, msg_diff_terminate=FULL_ITE_BP_STOP),
+                          device=dev)
     wall = time.perf_counter() - t0
     res = {"energies": tr.energies, "segment_s": [st.duration for st in tr.stats],
            "errors": tr.error_count, "wall_s": wall}
-    print(f"ITE full_ite N=2 D=3 chi=28 c128, 2 segments at dt=0.1: energies {tr.energies}, "
-          f"seconds per segment {res['segment_s']}, {tr.error_count} ITE errors, {wall:.1f} s")
+    print(f"ITE full_ite N=2 D=3 chi=28 c128, 2 segments at dt=0.1, BP stop {FULL_ITE_BP_STOP:g}: "
+          f"energies {tr.energies}, seconds per segment {res['segment_s']}, {tr.error_count} ITE "
+          f"errors, {wall:.1f} s")
     if tr.error_count or len(tr.energies) != 2 or not tr.energies[-1] < tr.energies[0]:
         raise AssertionError(f"the short full_ite did not lower the energy cleanly: {res}")
-    return res
+    return res, tr
 
 
 # single-layer swallowing at the production χ of tools/large_d_demo.py, the
@@ -989,11 +1021,14 @@ SU_PERTURB = 1e-15     # the change of the seed whose effect on the CPU is the c
 # JAX package itself (su_q0_D3.json "default_ladder")
 SU_LADDER = [0.01] * 200 + [1e-3] * 200 + [1e-4] * 100
 PUBLISHED_SU = {3: -0.41786, 6: -0.43188}   # BASELINE.md
-# the block measurements held against su_q0_D3.json's rows (N=2 17–20 s, N=3
-# 73–75 s of host-bound BP on an H100)
+# the block measurements held against su_q0_D3.json's rows, N=2 with the
+# default linear algebra and N=3 under KPBP_LINALG=gram: on an H100 the
+# N=3 row took 75.4 s by default and 19.8 s under gram, 9 BP sweeps either
+# way (the default path at N=3 stays held on the pin, phase 4)
 SU_BLOCK_NS = (2, 3)
+SU_BLOCK_GRAM = (3,)
 # SU at the published records' D=6: the ladder the card runs
-SU6_LADDER = [0.1] * 10 + [0.01] * 5
+SU6_LADDER = [0.1] * 5 + [0.01] * 3   # cut from 10 + 5 for phase 14's time
 SANDWICH_TOL = 1e-10   # sandwich expectations, card against the CPU port, c128
 ARB_TOL = 1e-10        # an arbitrary block against the unit-cell path or the JAX package
 # a block of 21 independent kets (D=2, N=2) and the JAX package's measurement
@@ -1094,7 +1129,8 @@ def su_warm_start(torch, K, SU, IBM, UnitCell, gold, dev):
     rows, rows_s = [], {}
     for n in SU_BLOCK_NS:
         t0 = time.perf_counter()
-        rows += IBM.measure_rows(cell, D, n, n, c128)
+        env = {"KPBP_LINALG": "gram"} if n in SU_BLOCK_GRAM else {}
+        rows += _with_env(env, lambda: IBM.measure_rows(cell, D, n, n, c128))
         rows_s[n] = time.perf_counter() - t0
     gaps = {r["N"]: abs(r["mean_energy"] - g["mean_energy"]) for r, g in zip(rows, gold["rows"])}
     before = K.launch_counts()
@@ -1111,7 +1147,8 @@ def su_warm_start(torch, K, SU, IBM, UnitCell, gold, dev):
           f"sweeps in {su_s:.2f} s ({1e3 * su_s / len(sweeps):.2f} ms per sweep); max |lambda - JAX| "
           f"{lam_gap:.3e} (tol {SU_TOL:g})")
     for r in rows:
-        print(f"SU warm start D={D} N={r['N']}: mean_energy {r['mean_energy']!r} (JAX "
+        print(f"SU warm start D={D} N={r['N']}"
+              f"{' under KPBP_LINALG=gram' if r['N'] in SU_BLOCK_GRAM else ''}: mean_energy {r['mean_energy']!r} (JAX "
               f"{gold['rows'][r['N'] - 2]['mean_energy']!r}, gap {gaps[r['N']]:.3e}; published SU "
               f"{PUBLISHED_SU[D]}), BP {r['bp_iters']} iterations, error {r['bp_error']:.3e}, "
               f"{rows_s[r['N']]:.2f} s")
@@ -1347,11 +1384,13 @@ SQ_REFS = {"Neel": -0.5, "exact": -0.6694}
 # most SQ_FU_SU_BP sweeps) and energy at χ_msg=18, χ=28, and how far a 1e-15
 # change of the start moves them; the full-update polish from that cell runs
 # two dt stages of one sweep, each of its BP runs cut to SQ_FU_BP sweeps
-# (full_update's default 40); its first stage alone raises the energy
-# (−0.5004944 → −0.5004258 on an H100), so both stay
+# (full_update's default 40; cut from 12 for phase 14's time: on an H100
+# the D=3 check took 99.8 s at 12, −0.5004944 → −0.5004258 → −0.5006036,
+# and 74.8 s at 6, → −0.5005110 → −0.5005414); at 12 its first stage alone
+# raised the energy, so both stages stay
 SQ_CASE_D3 = os.path.join(REPO, "tests", "assets", "square_D3.npz")
 SQ_FU_D, SQ_FU_SU_DTS, SQ_FU_SU_SWEEPS, SQ_FU_SU_BP = 3, (0.1, 0.05, 0.02), 30, 60
-SQ_FU_DTS, SQ_FU_BP = (0.05, 0.02), 12
+SQ_FU_DTS, SQ_FU_BP = (0.05, 0.02), 6
 
 
 def _sq_bar(move) -> float:
@@ -1426,8 +1465,7 @@ def batched_checks(torch, K, L, M, C, F, B, BlockSide, cell64, msgs64, dev):
         float(sweep(fused, sites)[1])
         times[label].append(time.perf_counter() - t0)
 
-    for label, sweep in (("per_side", per_side), ("batched", batched)):
-        float(sweep(fused, sites)[1])  # warm-up
+    # both sweeps ran on these complex64 inputs just above: no warm-up
     for _ in range(B_ROUNDS):
         for label, sweep in (("per_side", per_side), ("batched", batched),
                              ("batched", batched), ("per_side", per_side)):
@@ -1515,9 +1553,10 @@ def _dense_messages(torch, C, F, D, chi, seed, dev):
 def wide_batched(torch, K, L, M, C, F, B, BlockSide, UnitCell, dev):
     """Phase 11.4: D=5, N=2, χ_msg=50, χ=60, on a seeded random cell, from
     seeded dense messages (``_dense_messages``). In complex64, as BP runs:
-    a batched and a per-side sweep, then a second batched sweep from the
-    first one's messages, each timed with peak device memory, the first
-    two's distance printed. In complex128 with exact SVDs in place of the
+    a batched and a per-side sweep, each timed with peak device memory,
+    their distance printed (a second batched sweep from the first one's
+    messages, 4.70 s against the first's 4.69 on an H100, was cut for
+    phase 14's time). In complex128 with exact SVDs in place of the
     randomized one (L.RSVD_MIN_DIM lifted), for one class of three sides
     (the exact SVDs take ~15 s per class and body on an H100): the batched
     sweep's vmapped call against the per-side body toward each side, held
@@ -1543,7 +1582,6 @@ def wide_batched(torch, K, L, M, C, F, B, BlockSide, UnitCell, dev):
     fused, start = C.fused_cells(cell), _dense_messages(torch, C, F, WIDE_D, WIDE_CHI_MSG, 6, dev)
     run("batched_1", batched, fused, start)
     run("per_side", per_side, fused, start)
-    run("batched_2", batched, fused, runs["batched_1"]["msgs"])
     res = {k: {x: v for x, v in r.items() if x != "msgs"} for k, r in runs.items()}
     a, b = runs["batched_1"], runs["per_side"]
     res["complex64"] = {"distances": _msg_gaps(M, a["msgs"], b["msgs"]),
@@ -2396,6 +2434,149 @@ def ld_records(torch, dev):
     return out
 
 
+# phase 14: the port's own work. The flop model's configuration is the JAX
+# tool's (data/flops_model.json: N=2, D=3, χ=18, complex64), which is also
+# bench_scaling's D=3 row (χ = 2D²); bench_scaling at D=2…5 with FL_SWEEPS
+# timed sweeps each, after its first, timed alone
+FL_N, FL_D, FL_CHI = 2, 3, 18
+FLOPS_GOLD = os.path.join(REPO, "data", "flops_model.json")
+FL_SWEEPS = 2
+FL_BENCH_DS = (2, 3, 4, 5)
+SUBPROCESS_TIMEOUT = 400
+
+
+def _module_start(args):
+    """python -m <args> from the repository root, started: (process, start time)."""
+    return (subprocess.Popen([sys.executable, "-m", *args], cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+
+def _module_finish(started, timeout=SUBPROCESS_TIMEOUT):
+    """Wait for a command `_module_start` started: (rc, stdout, seconds from
+    its start); its output is printed, indented. One that overruns
+    `timeout` is killed and raises."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    secs = time.perf_counter() - t0
+    for line in (out + err).splitlines():
+        print(f"  | {line}")
+    return proc.returncode, out, secs
+
+
+def bench_scaling_start():
+    """Phase 14.1: tools.bench_scaling at D=2…5, as a command of its own."""
+    return _module_start(["kagomeperiodicbp_tpu_torch.tools.bench_scaling", *map(str, FL_BENCH_DS),
+                          "--sweeps", str(FL_SWEEPS)])
+
+
+def bench_scaling_check(started):
+    """Phase 14.1: bench_scaling exits 0 with one row per D, the batched
+    sweep at each, K1 once per D (the fused tensors) and K2 never (default
+    linear algebra)."""
+    rc, out, secs = _module_finish(started)
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    print(f"bench_scaling {' '.join(map(str, FL_BENCH_DS))} --sweeps {FL_SWEEPS}: rc {rc}, {secs:.1f} s; "
+          + "; ".join(f"D={r['D']} {r.get('bp_mode')} {r.get('sweep_seconds', float('nan')) * 1e3:.1f} ms "
+                      f"per sweep, {r.get('achieved_gflops', float('nan')):.2f} GFLOP/s, launches "
+                      f"{json.dumps(r.get('launches'))}" for r in rows))
+    if rc != 0 or [r.get("D") for r in rows] != list(FL_BENCH_DS):
+        raise AssertionError(f"bench_scaling failed: rc {rc}, rows {rows}")
+    for r in rows:
+        n = r["launches"]
+        if r["bp_mode"] != "batched" or n["fused_tensor"] != 1 or n["chol_inv_resident"] + n["chol_inv_blocked"]:
+            raise AssertionError(f"bench_scaling at D={r['D']}: {r['bp_mode']}, launches {n}")
+    return {"rows": rows, "seconds": secs}
+
+
+def flops_checks(torch, FM, bench_rows, sweep_s, update_s, dev):
+    """Phase 14.2, after bench_scaling has ended: the flop model at the JAX
+    tool's configuration, each count on the card equal to the CPU's count of
+    the same call as integers: the batched sweep (counted on the card by
+    bench_scaling, its D=3 row),
+    the per-side sweep and the ITE edge update (counted here), beside the
+    JAX tool's XLA count; then phase 6's median sweep time and phase 8's
+    complex64 update time as achieved GFLOP/s and a share of the card's
+    FP32 peak (PEAK_FLOPS, the rate the kernels' bounds use)."""
+    with open(FLOPS_GOLD) as fh:
+        gold = json.load(fh)[f"N{FL_N}_D{FL_D}_chi{FL_CHI}"]
+    (bench_d3,) = [r for r in bench_rows if r["D"] == FL_D and r["chi"] == FL_CHI and r["N"] == FL_N]
+    calls = {"batched_sweep": lambda d: FM.count_sweep(FL_N, FL_D, FL_CHI, FL_CHI, d, "batched"),
+             "per_side_sweep": lambda d: FM.count_sweep(FL_N, FL_D, FL_CHI, FL_CHI, d, "double"),
+             "ite_update": lambda d: FM.count_ite(FL_N, FL_D, FL_CHI, d)}
+    out = {}
+    for name, fn in calls.items():
+        cpu = fn("cpu")
+        if name == "batched_sweep":
+            card = {"total": bench_d3["flops_per_sweep"], "split": None, "uncounted": None}
+            same = card["total"] == cpu["total"]
+        else:
+            card = fn(dev)
+            same = card["split"] == cpu["split"] and card["total"] == cpu["total"]
+        if not same:
+            raise AssertionError(f"flop model {name}: the card counts {card} and the CPU {cpu}")
+        xla = gold["flops_per_ite_step" if name == "ite_update" else "flops_per_bp_sweep"]
+        out[name] = {"flops": cpu["total"], "split": cpu["split"], "uncounted": cpu["uncounted"],
+                     "xla_flops": xla, "xla_convention_gemm_over_xla": cpu["split"]["xla_convention_gemm"] / xla}
+        print(f"flop model {name} N={FL_N} D={FL_D} chi={FL_CHI} c64: {cpu['total']} real flops on the card"
+              f"{' (bench_scaling)' if name == 'batched_sweep' else ''} and on the CPU (equal); split "
+              f"{json.dumps(cpu['split'])}; GEMMs at 2 per multiply-add {cpu['split']['xla_convention_gemm']} "
+              f"= {out[name]['xla_convention_gemm_over_xla']:.4f} of data/flops_model.json's XLA count {xla:.0f}")
+    if out["batched_sweep"]["flops"] != out["per_side_sweep"]["flops"]:
+        raise AssertionError(f"the batched and per-side sweeps count differently: {out}")
+    for name, secs, what in (("per_side_sweep", sweep_s, "phase 6 median"),
+                             ("ite_update", update_s, "phase 8, c64 default")):
+        rate = out[name]["flops"] / secs
+        out[name].update({"seconds": secs, "achieved_gflops": rate / 1e9, "share_of_fp32_peak": rate / PEAK_FLOPS})
+        print(f"flop model {name}: {secs * 1e3:.1f} ms ({what}) is {rate / 1e9:.2f} GFLOP/s, "
+              f"{100 * rate / PEAK_FLOPS:.3f}% of {PEAK_FLOPS / 1e12:.0f} TFLOP/s")
+    return out
+
+
+def scripts_start(tmp, tracker_path):
+    """Phase 14.3: the three scripts, each as a command of its own, started
+    beside bench_scaling (none of them touches the card): create_kagome_elists
+    -N 2, plot_afmh_benchmark (without --plot: this machine has no
+    matplotlib) and unpack_ite_tracker on phase 8's tracker with --out."""
+    outs = {"elist": os.path.join(tmp, "elist.json"), "cell": os.path.join(tmp, "cell.pkl")}
+    runs = {"create_kagome_elists": ["-N", "2", "--out", outs["elist"]],
+            "plot_afmh_benchmark": [],
+            "unpack_ite_tracker": [tracker_path, "--out", outs["cell"]]}
+    return outs, {name: _module_start([f"kagomeperiodicbp_tpu_torch.{name}", *argv])
+                  for name, argv in runs.items()}
+
+
+def scripts_check(started, UnitCell, elists, afmh_lines, best_cell):
+    """Phase 14.3: each script exits 0; the edge list and the table equal
+    this process's, and the unpacked cell, read back, the tracker's best."""
+    outs, procs = started
+    res, printed = {}, {}
+    for name, proc in procs.items():
+        rc, printed[name], secs = _module_finish(proc, timeout=120)
+        res[name] = {"rc": rc, "seconds": secs}
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}")
+    with open(outs["elist"]) as fh:
+        if json.load(fh) != elists(2):
+            raise AssertionError("create_kagome_elists wrote another edge list than this process makes")
+    if printed["plot_afmh_benchmark"].splitlines() != afmh_lines:
+        raise AssertionError("plot_afmh_benchmark printed another table than this process makes")
+    back = UnitCell.load(outs["cell"])
+    gap = max((back[f] - best_cell[f].cpu()).abs().max().item() for f in "ABC")
+    res["unpack_ite_tracker"]["cell_gap"] = gap
+    if gap != 0.0:
+        raise AssertionError(f"unpack_ite_tracker's cell differs from the tracker's best by {gap}")
+    print(f"scripts: create_kagome_elists, plot_afmh_benchmark, unpack_ite_tracker exit 0 in "
+          + ", ".join(f"{r['seconds']:.1f}" for r in res.values())
+          + " s (beside bench_scaling); the edge list and the table equal this process's, the unpacked "
+            "cell the tracker's best (gap 0)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2456,13 +2637,26 @@ def main() -> int:
 
     BP.belief_propagation = recorded
 
+    # each phase's wall time, printed as it ends (phases 1-2 from the start)
+    phase_s, clock = {}, [T_START]
+
+    def lap(label):
+        now = time.perf_counter()
+        phase_s[label] = now - clock[0]
+        clock[0] = now
+        print(f"phase {label}: {phase_s[label]:.1f} s")
+
     # -- 2. build --
     t0 = time.perf_counter()
     K.build()
     print(f"build: {time.perf_counter() - t0:.2f} s ({K.library_path().name})")
 
+    lap("1-2")
+
     # -- 3. kernels against their plain versions --
     by_D, rows = kernel_checks(torch, K, dev)
+
+    lap("3")
 
     # -- 4. the slice in complex128 --
     K.reset_launch_counts()
@@ -2511,31 +2705,39 @@ def main() -> int:
         if counts_gram[variant] <= 0:
             raise AssertionError(f"K2 ({variant}) was not launched by the gram slice run")
 
-    # the randomized SVD draws its sketch from torch, not jax.random: how far
-    # does the sketch move the pin? The same run with another sketch says.
-    rsvd = L.rsvd_trunc
-
-    def other_sketch(a, k, **kw):
-        m, n = a.shape
-        gen = torch.Generator(device=a.device).manual_seed((m * 1000003 + n + 1) % (2**31 - 1))
-        omega = torch.randn((n, min(k + L.RSVD_OVERSAMPLE, m, n)), generator=gen,
-                            dtype=a.real.dtype, device=a.device)
-        return rsvd(a, k, omega=omega, **kw)
-
-    L.rsvd_trunc = other_sketch
-    try:
-        res_sketch = measure.production_measurement(PIN_CELL, device=dev)
-    finally:
-        L.rsvd_trunc = rsvd
-    sketch = energy_gap(res_sketch, res)
+    # A gap over the pin bar passes below SKETCH_TOL where a measured cause
+    # moves the energies as far. The gram linear algebra is one, measured by
+    # the two runs above (where the default run holds the bar). The
+    # randomized SVD's sketch (torch's, not jax.random's) is the other: the
+    # same run with another sketch measures it, and runs only where a gap
+    # over the bar has no measured cause yet.
     algebra = energy_gap(res_gram, res)
-    print(f"sketch: another sketch moves the energies by {sketch:.3e} "
-          f"({res_sketch['seconds']:.2f} s wall); the gram linear algebra, with the same "
-          f"sketches, by {algebra:.3e}")
-    causes = {"c128 default linalg": {"the randomized-SVD sketch": sketch},
-              "c128 KPBP_LINALG=gram": {"the randomized-SVD sketch": sketch,
-                                        "the gram linear algebra": algebra if gap < PIN_TOL else 0.0}}
-    for label, g in (("c128 default linalg", gap), ("c128 KPBP_LINALG=gram", gap_gram)):
+    causes = {"c128 default linalg": {},
+              "c128 KPBP_LINALG=gram": {"the gram linear algebra": algebra if gap < PIN_TOL else 0.0}}
+    gaps = (("c128 default linalg", gap), ("c128 KPBP_LINALG=gram", gap_gram))
+    print(f"the gram linear algebra, with the same sketches, moves the energies by {algebra:.3e}")
+    if any(g >= PIN_TOL and not any(v >= PIN_TOL for v in causes[label].values())
+           for label, g in gaps):
+        rsvd = L.rsvd_trunc
+
+        def other_sketch(a, k, **kw):
+            m, n = a.shape
+            gen = torch.Generator(device=a.device).manual_seed((m * 1000003 + n + 1) % (2**31 - 1))
+            omega = torch.randn((n, min(k + L.RSVD_OVERSAMPLE, m, n)), generator=gen,
+                                dtype=a.real.dtype, device=a.device)
+            return rsvd(a, k, omega=omega, **kw)
+
+        L.rsvd_trunc = other_sketch
+        try:
+            res_sketch = measure.production_measurement(PIN_CELL, device=dev)
+        finally:
+            L.rsvd_trunc = rsvd
+        sketch = energy_gap(res_sketch, res)
+        print(f"sketch: another sketch moves the energies by {sketch:.3e} "
+              f"({res_sketch['seconds']:.2f} s wall)")
+        for label in causes:
+            causes[label]["the randomized-SVD sketch"] = sketch
+    for label, g in gaps:
         if g < PIN_TOL:
             continue
         cause = [f"{c}, which alone moves the energies by {v:.3e}"
@@ -2565,6 +2767,8 @@ def main() -> int:
           f"{totals['plain_ms']:.2f} s for the plain version and {totals['library_ms']:.2f} s "
           f"for the library call (calls × isolated median times)")
 
+    lap("4")
+
     # -- 5. the slice in complex64 --
     K.reset_launch_counts()
     L.reset_eigh_retries()
@@ -2580,6 +2784,8 @@ def main() -> int:
     if counts64["fused_tensor"] <= 0:
         raise AssertionError("K1 was not launched by the c64 slice run")
     took("phases 4-5 (the pin measurements)")
+
+    lap("5")
 
     # -- 6. one BP sweep, N=2, D=3, χ=18, complex64 --
     cell = UnitCell.load(PIN_CELL, device=dev).astype(torch.complex64).force_zero_rotation()
@@ -2598,8 +2804,12 @@ def main() -> int:
           f"distance {float(err):.3e}")
     sweep6 = (cell, msgs)
 
+    lap("6")
+
     # -- 7. where the device time of a gram sweep goes --
     profile_gram_sweep(torch, C, F, UnitCell, dev)
+
+    lap("7")
 
     # -- 8. ITE on the card --
     edge = UpdateEdge.all_options()[0]  # (A,B)
@@ -2607,7 +2817,7 @@ def main() -> int:
     ite_updates, counts_ite = time_ite_updates(torch, K, L, F, edge, inputs, dev)
     K.reset_launch_counts()
     L.reset_eigh_retries()
-    ite_full = short_full_ite(torch, I, BPConfig, hamiltonians, dev)
+    ite_full, ite_tracker = short_full_ite(torch, I, BPConfig, hamiltonians, dev)
     ite_full["eigh_retries"] = L.eigh_retries()
     counts_ite = {n: counts_ite[n] + c for n, c in K.launch_counts().items()}
     print(f"ITE path: launches {json.dumps(counts_ite)}; shifted eigh retries in the short "
@@ -2621,6 +2831,8 @@ def main() -> int:
     ite_gaps = ite_card_vs_cpu(torch, F, E, IK, edge, inputs, dev)
     took("phase 8 (ITE)")
 
+    lap("8")
+
     # -- 9. single-layer swallowing at D=6 --
     t_sl = time.perf_counter()
     single = {"identity": sl_message_identity(torch, C, M, UnitCell, BlockSide, dev),
@@ -2631,6 +2843,8 @@ def main() -> int:
     single["wall_s"] = time.perf_counter() - t_sl
     print(f"single-layer phase: {single['wall_s']:.1f} s wall; launches {json.dumps(counts_sl)}")
     took("phase 9 (single-layer)")
+
+    lap("9")
 
     # -- 10. the warm start on growing blocks, sandwiches, classical messages,
     #        arbitrary blocks, pmps --
@@ -2663,6 +2877,8 @@ def main() -> int:
         raise AssertionError(f"the warm-start path launched no {missing}")
     warm["bp_modes"] = took("phase 10.3-10.7")
 
+    lap("10")
+
     # -- 11. the batched six-side sweep, and the square lattice --
     t_11 = time.perf_counter()
     K.reset_launch_counts()
@@ -2676,6 +2892,8 @@ def main() -> int:
     print(f"batched and square phase: {phase11['wall_s']:.1f} s wall; launches batched "
           f"{json.dumps(counts_b)}, square {json.dumps(counts_sq)}")
     took("phase 11")
+
+    lap("11")
 
     # -- 12. the distribution layer on one card: ranks share cuda:0 over gloo --
     from kagomeperiodicbp_tpu_torch.parallel import chi_shard as CS
@@ -2703,6 +2921,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the parallel path launched no {missing}")
     took("phase 12")
+
+    lap("12")
 
     # -- 13. large D and records: the D=7 padded pin, the D=8 work unit, the
     #        record entry points --
@@ -2736,14 +2956,57 @@ def main() -> int:
           f"{json.dumps(counts_rec)}")
     took("phase 13")
 
-    # -- 14. results --
+    lap("13")
+
+    # -- 14. the port's own work: bench_scaling, the flop model, the scripts --
+    import tempfile
+
+    from kagomeperiodicbp_tpu_torch import create_kagome_elists, plot_afmh_benchmark
+    from kagomeperiodicbp_tpu_torch.tools import flops_model as FM
+
+    t_14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tracker_path = os.path.join(tmp, "tracker.pkl")
+        ite_tracker.save(tracker_path)
+        bench = bench_scaling_start()
+        scripts = scripts_start(tmp, tracker_path)
+        try:
+            afmh = plot_afmh_benchmark.table_lines(plot_afmh_benchmark.rows(
+                os.path.join(REPO, "data", "unit_cells", "best")))
+            work = {"scripts": scripts_check(scripts, UnitCell, create_kagome_elists.elists, afmh,
+                                             ite_tracker.best_cell),
+                    "bench_scaling": bench_scaling_check(bench)}
+        finally:   # a check that raised leaves no command running
+            for proc, _ in (bench, *scripts[1].values()):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    counts_fl = {n: 0 for n in counts_default}
+    for row in work["bench_scaling"]["rows"]:
+        _add(counts_fl, row["launches"])
+    K.reset_launch_counts()
+    work["flop_model"] = flops_checks(torch, FM, work["bench_scaling"]["rows"], statistics.median(sweep_s[1:]),
+                                      ite_updates["complex64"]["default"]["s_per_update"], dev)
+    _add(counts_fl, K.launch_counts())
+    work["launches"] = counts_fl
+    work["wall_s"] = time.perf_counter() - t_14
+    print(f"the port's own work phase: {work['wall_s']:.1f} s wall; launches (bench_scaling's and this "
+          f"process's) {json.dumps(counts_fl)}")
+    if counts_fl["fused_tensor"] <= 0:
+        raise AssertionError(f"the flop model's path launched no fused_tensor: {counts_fl}")
+
+    lap("14")
+
+    # -- 15. results --
     launches = {n: counts_default[n] + counts_gram[n] + counts_ite[n] + counts_sl[n] + counts_ws[n]
                 + counts_b[n] + counts_sq[n] + counts_par[n] + counts_ld[n] + counts_rec[n]
-                for n in counts_default}
+                + counts_fl[n] for n in counts_default}
     by_path = {n: {"measurement": counts_default[n] + counts_gram[n], "ite": counts_ite[n],
                    "single_layer": counts_sl[n], "warm_start": counts_ws[n],
                    "batched_sweep": counts_b[n], "square": counts_sq[n],
-                   "parallel": counts_par[n], "large_d": counts_ld[n], "records": counts_rec[n]}
+                   "parallel": counts_par[n], "large_d": counts_ld[n], "records": counts_rec[n],
+                   "flops": counts_fl[n]}
                for n in counts_default}
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     k1 = ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82")
@@ -2764,6 +3027,8 @@ def main() -> int:
     print(json.dumps({"batched_and_square": phase11}))
     print(json.dumps({"parallel": par}))
     print(json.dumps({"large_d": large}))
+    print(json.dumps({"port_work": work}))
+    print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,12 +25,16 @@ so the build takes seconds). K1's wrappers count their launches in
 (a separate bra), ``chol_inv_cuda`` in those of the variant it ran
 (``CHOL_INV_VARIANTS``); ``launch_counts`` reads them by kernel name.
 ``chol_inv`` is the operator ``kpbp::chol_inv`` of ``torch.library``, with a
-vmap rule that hands K2 all mapped copies in one call.
+vmap rule that hands K2 all mapped copies in one call. While
+``tools/flops_model`` counts, each wrapper tells its meter (``FLOP_METER``)
+the shapes of its call, on either device (``_metered``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import struct
@@ -275,29 +279,32 @@ FUSED_TENSOR_OPERATOR = SimpleNamespace(launches=0)
 
 
 def fused_tensor(t: torch.Tensor) -> torch.Tensor:
-    if t.is_cpu:
-        return fused_tensor_ref(t)
-    return fused_tensor_cuda(t)
+    with _metered("k1", t.dtype, 1, t.shape[0], t.shape[1]):
+        if t.is_cpu:
+            return fused_tensor_ref(t)
+        return fused_tensor_cuda(t)
 
 
 def fused_tensors(ts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """The fused tensors of a cell's 1 to 3 flavours: one K1 launch on the
     card, the plain version on the CPU."""
-    if ts[0].is_cpu:
-        _fused_dims(ts, "fused_tensors")
-        return fused_tensors_ref(ts)
-    return fused_tensors_cuda(ts)
+    d, D = _fused_dims(ts, "fused_tensors")
+    with _metered("k1", ts[0].dtype, len(ts), d, D):
+        if ts[0].is_cpu:
+            return fused_tensors_ref(ts)
+        return fused_tensors_cuda(ts)
 
 
 def fused_tensors_with_operator(t: torch.Tensor, ops) -> Tuple[torch.Tensor, ...]:
     """The sandwiches of 1 to 3 operators (a [n, d, d] tensor or a sequence
     of [d, d] arrays) at the site t: one K1 launch on the card, the plain
     version on the CPU."""
-    if t.is_cpu:
-        ops = _operator_stack(ops, t)
-        _fused_dims((t,) * len(ops), "fused_tensors_with_operator")
-        return tuple(fused_tensor_with_operator_ref(t, op) for op in ops)
-    return fused_tensors_with_operator_cuda(t, ops)
+    ops = _operator_stack(ops, t)
+    d, D = _fused_dims((t,) * len(ops), "fused_tensors_with_operator")
+    with _metered("k1_operator", t.dtype, len(ops), d, D):
+        if t.is_cpu:
+            return tuple(fused_tensor_with_operator_ref(t, op) for op in ops)
+        return fused_tensors_with_operator_cuda(t, ops)
 
 
 # ------------------------------- K2 ---------------------------------------
@@ -387,9 +394,10 @@ CHOL_INV_VARIANTS = {"resident": SimpleNamespace(launches=0),
 def _chol_inv_op(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 as one operator of PyTorch's, so that ``torch.func.vmap`` can run
     it: the plain version on the CPU, the kernel on the card."""
-    if g.device.type == "cpu":
-        return chol_inv_ref(g)
-    return chol_inv_cuda(g.contiguous())
+    with _metered("k2", g.dtype, math.prod(g.shape[:-2]), g.shape[-1]):
+        if g.device.type == "cpu":
+            return chol_inv_ref(g)
+        return chol_inv_cuda(g.contiguous())
 
 
 @_chol_inv_op.register_vmap
@@ -415,6 +423,20 @@ def chol_inv(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # ------------------------------ counters ----------------------------------
+
+# The meter of tools/flops_model while it counts (a FlopMeter), else None.
+FLOP_METER = None
+
+
+def _metered(kernel: str, dtype: torch.dtype, *dims: int):
+    """The context a wrapper's work runs in: while a meter counts, it counts
+    the call by its formula from `dims` and leaves the torch ops inside (the
+    plain version's, on the CPU) uncounted, so that both devices give the
+    same count."""
+    if FLOP_METER is None:
+        return contextlib.nullcontext()
+    return FLOP_METER.kernel(kernel, dtype, *dims)
+
 
 KERNELS = {"fused_tensor": FUSED_TENSOR,
            "fused_tensor_operator": FUSED_TENSOR_OPERATOR,

@@ -242,9 +242,9 @@ print(json.dumps({"modules": names,
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of the port, the batched sweep, the square lattice,
     run_square, the plots, the distribution layer, the large-D and record
-    entry points and the tools among them, and chip_smoke.py import in a
-    fresh process without JAX or the JAX package, and without matplotlib
-    (the plots import it when they draw)."""
+    entry points, the tools and the last scripts among them, and
+    chip_smoke.py import in a fresh process without JAX or the JAX package,
+    and without matplotlib (the plots import it when they draw)."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
@@ -256,5 +256,7 @@ def test_port_and_chip_smoke_import_no_jax():
                               "parallel.sweep", "utils.csvs", "run_sweep", "large_d_demo",
                               "measure_padded", "bp_accuracy", "load_external_su", "compare_cells",
                               "chip_accuracy", "tools", "tools.profile_bp_phases",
-                              "tools.sketch_rank_curve")} <= set(got["modules"])
+                              "tools.sketch_rank_curve", "tools.flops_model", "tools.bench_scaling",
+                              "create_kagome_elists", "plot_afmh_benchmark",
+                              "unpack_ite_tracker")} <= set(got["modules"])
     assert len(got["modules"]) > 30 and got["imported"] == [] and not got["matplotlib"]

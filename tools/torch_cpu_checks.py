@@ -45,9 +45,23 @@ the JAX package and its PyTorch port, complex128 unless stated:
    error of 1e-14, BP at χ_bp 8 and 24, and the unpadded D=2 cell at
    χ_bp=18, each under the same 1e-15 move.
 
+6. ``flops`` — the port's count of its work (kagomeperiodicbp_tpu_torch/
+   tools/flops_model.py) beside the JAX tool's XLA count, live
+   (tools/flops_model.py ``model``), at N=2, D=2, 3, 4 (χ = 8, 18, 32, the
+   JAX tool's χ_env = 2D²+10), complex64, the JAX tool's cell and uniform
+   messages: per sweep and per ITE edge update, the port's GEMM part in
+   XLA's unit (2 per multiply-add) against XLA's total, and the update split
+   into its stages, each counted in both packages: the edge environment
+   (the JAX package's ``_edge_env_jit``), gate + ALS (``apply_gate``) and ρ
+   (``rho_ij``, the energy and the RDM's health), the last two jitted apart
+   here from the JAX tool's ``_gate_als_jit``. Then, for ``_half`` (one side
+   of ρ, which ALS also reaches through ``_half_env``), the multiply-adds of
+   the port's pairwise order against opt_einsum's path for the JAX
+   package's one six-operand einsum.
+
 Prints one JSON line per part.
 
-Usage: python tools/torch_cpu_checks.py [sketch|c64|batched|square|pad|all] [NUDGES]
+Usage: python tools/torch_cpu_checks.py [sketch|c64|batched|square|pad|flops|all] [NUDGES]
 """
 import json
 import os
@@ -295,10 +309,129 @@ def pad() -> dict:
     return out
 
 
+def flops() -> dict:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import flops_model as jax_flops_model
+    from kagomeperiodicbp_tpu.algo import contraction as JC
+    from kagomeperiodicbp_tpu.algo import edge_env as JE
+    from kagomeperiodicbp_tpu.algo import fused as JF
+    from kagomeperiodicbp_tpu.enums import UnitCellFlavor as JFlavor, UpdateEdge as JEdge
+    from kagomeperiodicbp_tpu.networks.unit_cell import UnitCell as JUnitCell
+    from kagomeperiodicbp_tpu.ops import ite_kernels as JK
+    from kagomeperiodicbp_tpu.physics import hamiltonians as jax_hamiltonians
+    from kagomeperiodicbp_tpu_torch.algo import edge_env as E
+    from kagomeperiodicbp_tpu_torch.algo import fused as F
+    from kagomeperiodicbp_tpu_torch.convert import messages_from_numpy, unit_cell_from_numpy
+    from kagomeperiodicbp_tpu_torch.enums import UnitCellFlavor, UpdateEdge
+    from kagomeperiodicbp_tpu_torch.ops import ite_kernels as IK
+    from kagomeperiodicbp_tpu_torch.physics.hamiltonians import heisenberg_afm
+    from kagomeperiodicbp_tpu_torch.tools import flops_model as FM
+
+    def xla(fn, *args) -> float:
+        cost = jax.jit(fn).lower(*args).compile().cost_analysis()
+        return float((cost[0] if isinstance(cost, (list, tuple)) else cost).get("flops", 0.0))
+
+    def gemm(fn, *args) -> int:
+        return FM.count(fn, *args)[1]["split"]["xla_convention_gemm"]
+
+    def rho_stage(K, t1, t2, env, h, health):
+        rho = K.rho_ij(t1, t2, env)
+        return K.expectation(rho, h), health(rho)
+
+    c64, n = jnp.complex64, 2
+    rows = []
+    for D, chi in ((2, 8), (3, 18), (4, 32)):
+        whole = jax_flops_model.model(n, D, chi)
+        chi_env = 2 * D * D + 10
+        # the JAX tool's inputs, handed to the port as numpy arrays
+        jcell = JUnitCell.random(d=2, D=D, key=jax.random.PRNGKey(0), dtype=c64)
+        jmsgs = JC.initial_messages(n, D, chi, model="uniform", dtype=c64)
+        jsites = JF._msgs_to_sites(jmsgs)
+        jcells = (jcell.A, jcell.B, jcell.C)
+        jedge = JEdge(JFlavor.A, JFlavor.B)
+        t1, t2, env, _ = JE.edge_environment_sites(jcells, jsites, n, chi_env, chi, jedge)
+        h = jnp.asarray(jax_hamiltonians.heisenberg_afm(), c64)
+        g = JK.gate_from_hamiltonian(h, 1e-3)
+        t1n, t2n, _ = JK.apply_gate(g, D, t1, t2, env, als_iters=10)
+        jax_stages = {
+            "environment": xla(lambda c, s: JE.edge_environment_sites(c, s, n, chi_env, chi, jedge)[:3],
+                               jcells, jsites),
+            "gate_als": xla(lambda h_, a, b, e: JK.apply_gate(JK.gate_from_hamiltonian(h_, 1e-3), D,
+                                                              a, b, e, als_iters=10)[:2], h, t1, t2, env),
+            "rho": xla(lambda a, b, e, h_: rho_stage(JK, a, b, e, h_, JF._rho_health), t1n, t2n, env, h),
+        }
+
+        c64t = torch.complex64
+        cell = unit_cell_from_numpy({f: np.asarray(jcell[f]) for f in "ABC"}, "cpu", c64t)
+        sites = F._msgs_to_sites(messages_from_numpy({int(s): [np.asarray(x) for x in m.sites]
+                                                      for s, m in jmsgs.items()}, "cpu", c64t))
+        cells = (cell.A, cell.B, cell.C)
+        edge = UpdateEdge(UnitCellFlavor.A, UnitCellFlavor.B)
+        to_t = lambda x: torch.tensor(np.asarray(x), dtype=c64t)  # noqa: E731
+        pt1, pt2, penv = to_t(t1), to_t(t2), [to_t(e) for e in env]
+        ph = torch.as_tensor(heisenberg_afm(), dtype=c64t)
+        port_stages = {
+            "environment": gemm(lambda: E.edge_environment_sites(cells, sites, n, chi_env, chi, edge)),
+            "gate_als": gemm(lambda: IK.apply_gate(IK.gate_from_hamiltonian(ph, 1e-3), D, pt1, pt2,
+                                                   penv, als_iters=10)),
+            "rho": gemm(lambda: rho_stage(IK, to_t(t1n), to_t(t2n), penv, ph, F._rho_health)),
+        }
+        sweep = FM.count_sweep(n, D, chi, chi, "cpu")["split"]["xla_convention_gemm"]
+        ite = FM.count_ite(n, D, chi, "cpu")["split"]["xla_convention_gemm"]
+        rows.append({
+            "D": D, "chi": chi, "chi_env": chi_env,
+            "sweep": {"port_gemm": sweep, "xla": whole["flops_per_bp_sweep"],
+                      "ratio": sweep / whole["flops_per_bp_sweep"]},
+            "ite": {"port_gemm": ite, "xla": whole["flops_per_ite_step"],
+                    "ratio": ite / whole["flops_per_ite_step"]},
+            "ite_stages": {k: {"port_gemm": port_stages[k], "xla": jax_stages[k],
+                               "ratio": port_stages[k] / jax_stages[k]} for k in port_stages},
+            "half": half_order(D, chi_env),
+        })
+        print(json.dumps(rows[-1]), flush=True)
+    return {"rows": rows}
+
+
+def half_order(D: int, chi: int, d: int = 2) -> dict:
+    """Multiply-adds of one ``_half`` (ρ's side: t, t*, three env sites →
+    [d, d, e, e, p, s]) and one ``_half_env`` (the reduced environment's
+    side: t_rest, its conjugate, three env sites → [r, r, p, s]): the
+    port's pairwise order against opt_einsum's "optimal" path, which the
+    JAX package's single einsum takes (``optimize=True``). Shapes: kets
+    [d, D, D, D, D] (every bond D after the update), t_rest [r, D, D, D]
+    with r = d·D (a QR of the [D³, d·D] matrix), env sites [χ, D, D, χ]."""
+    import opt_einsum
+
+    def macs(spec, *shapes):
+        return int(opt_einsum.contract_path(spec, *shapes, shapes=True, optimize="optimal")[1].opt_cost) // 2
+
+    r, t, rest, env = d * D, (d, D, D, D, D), (d * D, D, D, D), (chi, D, D, chi)
+    out = {}
+    for name, spec, ops, pairs in (
+            ("half", "deabc,DExyz,paxq,qbyr,rczs->dDeEps", (t, t, env, env, env),
+             (("deabc,paxq->debcpxq", t, env), ("debcpxq,qbyr->decpxyr", (d, D, D, D, chi, D, chi), env),
+              ("decpxyr,rczs->depxyzs", (d, D, D, chi, D, D, chi), env),
+              ("depxyzs,DExyz->dDeEps", (d, D, chi, D, D, D, chi), t))),
+            ("half_env", "tabc,paxq,qbym,mczs,Txyz->tTps", (rest, env, env, env, rest),
+             (("tabc,paxq->tbcpxq", rest, env), ("tbcpxq,qbym->tcpxym", (r, D, D, chi, D, chi), env),
+              ("tcpxym,mczs->tpxyzs", (r, D, chi, D, D, chi), env),
+              ("tpxyzs,Txyz->tTps", (r, chi, D, D, D, chi), rest)))):
+        port = sum(macs(sp, a, b) for sp, a, b in pairs)
+        path = opt_einsum.contract_path(spec, *ops, shapes=True, optimize="optimal")[0]
+        out[name] = {"port_pairwise_macs": port, "einsum_optimal_macs": macs(spec, *ops),
+                     "einsum_path": [list(p) for p in path]}
+    return out
+
+
 def main() -> None:
     part = sys.argv[1] if len(sys.argv) > 1 else "all"
     nudges = int(sys.argv[2]) if len(sys.argv) > 2 else 4
-    if part not in ("sketch", "c64", "batched", "square", "pad", "all"):
+    if part not in ("sketch", "c64", "batched", "square", "pad", "flops", "all"):
         raise SystemExit(__doc__)
     import jax
 
@@ -317,6 +450,8 @@ def main() -> None:
         print(json.dumps({"square": square()}))
     if part in ("pad", "all"):
         print(json.dumps({"pad": pad()}))
+    if part in ("flops", "all"):
+        print(json.dumps({"flops": flops()}))
 
 
 if __name__ == "__main__":
