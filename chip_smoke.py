@@ -11,11 +11,16 @@ Phases (each raises on failure; any failure exits nonzero with no result):
 3. kernels — K1 fused_tensor, one tensor and a cell's three in one launch,
    against its plain PyTorch version at D=2…8 in complex64 and complex128,
    at D=3 in float32 and float64 and at D=9 (D read at run time), timed
-   beside the einsum library call and its bound; K2 chol_inv (both
-   variants, resident and blocked) against its plain version in complex64
-   and complex128, with median times, and K2's two variants timed side by
-   side around their switch, ops/kernels.CHOL_RESIDENT_MAX_K, in all four
-   dtypes;
+   beside the einsum library call and its bound; K2 chol_inv (the
+   variant the plan picks) against its plain version in complex64 and
+   complex128, with median times; K2's resident and blocked variants timed
+   side by side around their switch, ops/kernels.CHOL_RESIDENT_MAX_K, in
+   all four dtypes; and K2 by k, the grams of the pin and of D=6–8
+   (k = 324…8832 in complex64, 324, 504, 2952 in complex128): every large-k
+   variant that takes k (blocked; tiled at tile widths 64 and 128) held to
+   the plain version and timed in turns, per call and on the device,
+   beside cuSOLVER (cholesky_ex + solve_triangular), the bound and its
+   share, with the k at which the plan switches;
 4. the slice in complex128 — production_measurement of tests/assets/pin_D3.pkl
    (BP at N=3, χ=36, then the six edge RDMs at χ=56), once with the default
    linear algebra and once with KPBP_LINALG=gram, against pin_D3.json (a
@@ -51,9 +56,10 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    with the default linear algebra, BP (single-layer by the auto switch)
    timed per sweep with its peak device memory and swallows per sweep, a
    profile of one per-side call, one ITE edge update on its messages, and
-   one per-side call under KPBP_LINALG=gram, which must launch K2 blocked,
-   with K2 then held to its plain version at every size that call gave it,
-   in complex64;
+   one per-side call under KPBP_LINALG=gram, which must launch the K2
+   variant the plan picks for its largest gram, with K2 then held to its
+   plain version at every size that call gave it, in complex64, and K2's
+   share of the call (calls × kernel time over those sizes);
 10. the warm start on growing blocks: K1's operator form (a separate bra:
    the x, y, z sandwiches of one site in one launch) against its plain
    version at D=2…8 in complex64 and complex128, timed beside the einsum;
@@ -126,7 +132,8 @@ Phases (each raises on failure; any failure exits nonzero with no result):
    (--no-store), its energy beside the record's, and bp_accuracy and
    load_external_su at D=2, card against the CPU port; then, the launch
    counts read, K2 held to its plain version at every size the D=8 gram
-   call gave it, timed beside the library call at the largest;
+   call gave it and timed there, for K2's share of that call, printed
+   beside the default per-side call;
 14. the port's own work: tools.bench_scaling at D=2…5 as a command of
    its own, which must exit 0 with the batched sweep at every D, K1 once
    per D and K2 never; the flop model (tools/flops_model) at the JAX
@@ -175,6 +182,13 @@ K1_TOL = {"float32": 1e-6, "float64": 1e-14,      # absolute, unit-norm ket
 K1_CASES = ([(n, D) for n in ("complex64", "complex128") for D in range(2, 9)]
             + [("float32", 3), ("float64", 3), ("complex128", 9)])
 K2_TOL = {"complex64": 1e-5, "complex128": 1e-12}   # relative to max|L|, max|W|
+K2_VARIANTS = ("chol_inv_resident", "chol_inv_blocked", "chol_inv_tiled")
+# K2 by k (phase 3): the pin's grams, both sides of the switch to the tiled
+# variant and of its tile width, and D=6, 7 and 8's largest (D²·χ at
+# χ = 82, 108, 138)
+K2_TABLE = (("complex64", (324, 504, 1296, 1600, 2952, 4096, 5292, 8832)),
+            ("complex128", (324, 504, 1152, 1296, 2952)))
+K2_BOTH_WIDTHS_MIN_K = 4096   # the tiled variant at both tile widths from here
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
 
@@ -332,7 +346,7 @@ def k1_checks(torch, K, dev, gen):
 
 def kernel_checks(torch, K, dev):
     """Phase 3: each kernel against its plain version, printed; returns the
-    K1 cases, and the rows measured at the main path's shapes."""
+    K1 cases, the rows measured at the main path's shapes and K2 by k."""
     gen = torch.Generator().manual_seed(0)
     by_D, k1_row = k1_checks(torch, K, dev, gen)
     rows = {"fused_tensor": k1_row}
@@ -346,7 +360,7 @@ def kernel_checks(torch, K, dev):
     for name in ("float32", "float64", "complex64", "complex128"):
         dt = getattr(torch, name)
         edge = K.CHOL_RESIDENT_MAX_K
-        for k in (16, 24, 32, 40, 48, 56, 72, 81):
+        for k in (16, 24, 32, 48):
             g = _spd(torch, gen, dt, k).to(dev)
             times = {}
             for variant in ("resident", "blocked"):
@@ -356,7 +370,91 @@ def kernel_checks(torch, K, dev):
                   f"(device {times['resident'][1]:.4f}), blocked {times['blocked'][0]:.4f} ms "
                   f"(device {times['blocked'][1]:.4f}); the plan takes "
                   f"{'resident' if k <= edge else 'blocked'} (switch at k={edge})")
-    return by_D, rows
+    table = k2_by_k(torch, K, dev)
+    rows["chol_inv_tiled"] = table["complex64"]["8832"]["row"]
+    return by_D, rows, table
+
+
+def k2_by_k(torch, K, dev):
+    """Phase 3, K2 by k (K2_TABLE): at each size every large-k variant (blocked;
+    tiled at the plan's tile width, and from K2_BOTH_WIDTHS_MIN_K at both
+    widths where they fit) held to the plain version at K2_TOL and timed in
+    turns (each variant, then each again in reverse order, per call on CUDA
+    events; on the device in the first turn), beside cuSOLVER's cholesky_ex +
+    solve_triangular and the bound. Returns {dtype: {k: ...}}, with each
+    size's row for the plan's own choice."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for name, ks in K2_TABLE:
+        dt = getattr(torch, name)
+        out[name] = {}
+        for k in ks:
+            b = torch.randn((k, k), generator=gen, dtype=dt, device=dev)
+            g = b @ b.mH + k * torch.eye(k, dtype=dt, device=dev)
+            del b
+            plan = K.chol_inv_plan(k, dt)
+            widths = (64, 128) if k >= K2_BOTH_WIDTHS_MIN_K else (K.chol_inv_plan(k, dt, "tiled").tile,)
+            cands = [("blocked", 0)] + [("tiled", t) for t in widths
+                                        if not _refused(K.chol_inv_plan, k, dt, "tiled", t)]
+            l_ref, w_ref = K.chol_inv_ref(g)
+            errs = {}
+            for variant, tile in cands:
+                l, w = K.chol_inv_cuda(g, variant, tile)
+                errs[(variant, tile)] = (
+                    max(((l - l_ref).abs().max() / l_ref.abs().max()).item(),
+                        ((w - w_ref).abs().max() / w_ref.abs().max()).item()),
+                    max((l - l_ref).abs().max().item(), (w - w_ref).abs().max().item()))
+                del l, w
+            del l_ref, w_ref
+            big = k >= 4000
+            times, dev_times = {c: [] for c in cands}, {}
+            for turn, c in enumerate(cands + cands[::-1]):   # in turns: A B C, C B A
+                fn = lambda: K.chol_inv_cuda(g, *c)  # noqa: E731
+                slow = big and c[0] == "blocked"
+                times[c].append(_ms(torch, fn, budget_ms=100.0, rounds=2 if slow else 5))
+                if turn < len(cands):
+                    # device_ms queues its calls behind a sleep: keep them within
+                    # the launch queue (~1000 launches) or the host waits on it
+                    calls = max(1, min(2 if slow else 20, 512 // K.chol_inv_plan(k, dt, *c).launches))
+                    dev_times[c] = device_ms(torch, fn, calls=calls)
+            lib = lambda: _library(torch, g)  # noqa: E731
+            lib_ms = _ms(torch, lib, budget_ms=100.0, rounds=3 if big else 5)
+            plain_ms = _ms(torch, lambda: K.chol_inv_ref(g), budget_ms=100.0, rounds=3 if big else 5)
+            b_ms, b_by = bound(*chol_inv_work(k, dt, torch))
+            row = {}
+            for (variant, tile), ts in times.items():
+                ms, dev_ms = statistics.mean(ts), dev_times[(variant, tile)]
+                label = variant if variant == "blocked" else f"tiled{tile}"
+                row[label] = {"ms": ms, "device_ms": dev_ms, "turns_ms": ts,
+                              "rel_err": errs[(variant, tile)][0], "max_abs_err": errs[(variant, tile)][1],
+                              "share_of_bound": b_ms / dev_ms}
+            own = row["blocked" if plan.variant == "blocked" else f"tiled{plan.tile}"]
+            out[name][str(k)] = {"by_variant": row, "plan": f"{plan.variant}{plan.tile if plan.variant == 'tiled' else ''}",
+                                 "library_ms": lib_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                 "row": {"max_abs_err": own["max_abs_err"], "ms": own["ms"],
+                                         "device_ms": own["device_ms"], "plain_ms": plain_ms,
+                                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                                         "shape": f"k={k}, {name}"}}
+            print(f"K2 by k {name} k={k} (the plan takes {out[name][str(k)]['plan']}; tiled from "
+                  f"k={K.CHOL_TILED_MIN_K[dt]}, tile 128 from k={K.CHOL_WIDE_MIN_K} but in complex128): "
+                  + "; ".join(f"{v} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, turns "
+                              f"{'/'.join(f'{t:.4f}' for t in r['turns_ms'])}), rel_err {r['rel_err']:.1e}, "
+                              f"{100 * r['share_of_bound']:.1f}% of the bound" for v, r in row.items())
+                  + f"; cuSOLVER {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            bad = {v: r["rel_err"] for v, r in row.items() if not r["rel_err"] < K2_TOL[name]}
+            if bad:
+                raise AssertionError(f"K2 disagrees with its plain version at k={k} {name}: {bad}")
+            del g
+            torch.cuda.empty_cache()
+    return out
+
+
+def _refused(fn, *args) -> bool:
+    try:
+        fn(*args)
+    except ValueError:
+        return True
+    return False
 
 
 def _spd(torch, gen, dt, k):
@@ -408,6 +506,18 @@ def k2_sizes(L, fn):
         return fn(), k_seen
     finally:
         L.chol_inv = chol_inv
+
+
+def k2_large(K, k_seen, dt) -> str:
+    """The K2 counter of the variant the plan picks for the largest gram a
+    path gave K2: the path's large-k variant."""
+    return f"chol_inv_{K.chol_inv_plan(max(k_seen), dt).variant}"
+
+
+def k2_share(k_seen, by_k, seconds) -> float:
+    """K2's share of a call of `seconds` that gave it the grams k_seen
+    ({k: calls}), from each size's kernel time (by_k[k]["ms"])."""
+    return sum(n * by_k[k]["ms"] for k, n in k_seen.items()) / 1e3 / seconds
 
 
 def energy_gap(a, b) -> float:
@@ -993,16 +1103,19 @@ def sl_production(torch, K, L, C, F, CT, BP, UnitCell, BlockSide, UpdateEdge, ha
     gram_s = time.perf_counter() - t0
     counts = K.launch_counts()
     gram = {n: counts[n] - before[n] for n in counts}
-    if gram["chol_inv_blocked"] < 1:
-        raise AssertionError("K2 blocked was not launched on the single-layer path under gram")
+    large = k2_large(K, k_seen, c64)
+    if gram[large] < 1:
+        raise AssertionError(f"K2's large-k variant {large} was not launched on the single-layer path under gram")
     # K2 at every size that call gave it, in its dtype, against the plain version
     gen = torch.Generator().manual_seed(2)
     by_k = {k: check_chol_inv(torch, K, dev, gen, c64, "complex64", k) for k in sorted(k_seen)}
     k2 = {str(k): {"calls": k_seen[k], "variant": r["variant"], "max_abs_err": r["max_abs_err"],
                    "ms": r["ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
           for k, r in by_k.items()}
-    res["gram_per_side"] = {"s": gram_s, "launches": gram, "k2_by_size": k2}
-    print(f"single-layer per-side call under KPBP_LINALG=gram: {gram_s:.2f} s; launches {json.dumps(gram)}; "
+    share = k2_share(k_seen, by_k, gram_s)
+    res["gram_per_side"] = {"s": gram_s, "launches": gram, "k2_by_size": k2, "k2_share": share}
+    print(f"single-layer per-side call under KPBP_LINALG=gram: {gram_s:.2f} s, K2 {100 * share:.1f}% of it "
+          f"(calls × kernel ms over its sizes); launches {json.dumps(gram)}; "
           f"K2 sizes k:calls {json.dumps(dict(sorted(k_seen.items())))}, each held to its plain version "
           f"in complex64 (tol {K2_TOL['complex64']:g}): largest rel_err "
           f"{max(r['rel_err'] for r in by_k.values()):.3e}")
@@ -1179,7 +1292,7 @@ def su_warm_start(torch, K, SU, IBM, UnitCell, gold, dev):
                                  f"cause {cause}, at most {SU_CAUSE_TOL})")
     if not res["gram_gap"] < SU_TOL:
         raise AssertionError(f"SU cell: the gram measurement differs from the default by {res['gram_gap']}")
-    if gram["chol_inv_resident"] < 1 or gram["chol_inv_blocked"] < 1:
+    if gram["chol_inv_resident"] < 1 or gram["chol_inv_blocked"] + gram["chol_inv_tiled"] < 1:
         raise AssertionError(f"the gram measurement of the SU cell did not launch K2: {gram}")
     return res, cell
 
@@ -1506,9 +1619,8 @@ def batched_checks(torch, K, L, M, C, F, B, BlockSide, cell64, msgs64, dev):
     print(f"timed sweeps {res['timing_s']:.1f} s; gram sweep N={B_N} D={D} chi={B_CHI} c128: per-side {t_ps:.2f} s, launches "
           f"{json.dumps(gram['per_side'])}; batched {t_b:.2f} s, launches {json.dumps(gram['batched'])}; "
           f"K2 sizes (batch 3) k:calls {json.dumps(dict(sorted(k_seen.items())))}; message distance {gap:.3e}")
-    k2v = ("chol_inv_resident", "chol_inv_blocked")
-    if not sum(gram["batched"][v] for v in k2v) > 0 or any(
-            gram["per_side"][v] != 3 * gram["batched"][v] for v in k2v):
+    if not sum(gram["batched"][v] for v in K2_VARIANTS) > 0 or any(
+            gram["per_side"][v] != 3 * gram["batched"][v] for v in K2_VARIANTS):
         raise AssertionError(f"the batched gram sweep did not launch K2 a third as often: {gram}")
     if not gap < BATCHED_TOL["complex128"]:
         raise AssertionError(f"the batched gram sweep differs from the per-side one by {gap}")
@@ -1825,7 +1937,7 @@ def square_checks(torch, K, L, M, S, FU, run_square, hamiltonians, dev):
     res["gram_bp"] = {"launches": d, "distance_to_jax": gap}
     print(f"square BP n={SQ_N} D={SQ_D} under KPBP_LINALG=gram: launches {json.dumps(d)}; messages "
           f"{gap:.3e} from the JAX package's (tol {SQ_TOL:g})")
-    if d["chol_inv_resident"] + d["chol_inv_blocked"] < 1 or not gap < SQ_TOL:
+    if sum(d[v] for v in K2_VARIANTS) < 1 or not gap < SQ_TOL:
         raise AssertionError(f"the gram square BP did not launch K2 or misses {SQ_TOL}: {res['gram_bp']}")
     return res, counts
 
@@ -1987,7 +2099,8 @@ def multichain_checks(torch, C, F, B, MC, launch, UnitCell, UpdateEdge, ite_in, 
           f"process; energies {res['energies']}, against one process {max(res['gaps']):.3e} "
           f"(tol {P_MC_TOL:g}); K1/K2 launches per rank "
           + "; ".join(f"{i}: K1 {c['fused_tensor']}, K2 {c['chol_inv_resident']} resident + "
-                      f"{c['chol_inv_blocked']} blocked" for i, c in enumerate(res["launches"])))
+                      f"{c['chol_inv_blocked']} blocked + {c['chol_inv_tiled']} tiled"
+                      for i, c in enumerate(res["launches"])))
     if not max(res["gaps"]) < P_MC_TOL:
         raise AssertionError(f"multichain ITE step differs from one process: {res}")
     dry = {}
@@ -2246,8 +2359,9 @@ def ld_d8(torch, K, L, C, F, CT, UnitCell, BlockSide, UpdateEdge, hamiltonians, 
     print(f"large D: per-side call D={LD8_D} under KPBP_LINALG=gram: {gram['s']:.2f} s, peak "
           f"{gram['peak_gb']:.2f} GB; launches {json.dumps(gram['launches'])}; K2 sizes k:calls "
           f"{json.dumps(gram['k2_sizes'])}")
-    if gram["launches"]["chol_inv_blocked"] < 1 or gram["launches"]["chol_inv_resident"] < 1:
-        raise AssertionError(f"the D={LD8_D} gram per-side call did not launch both K2 variants: {gram}")
+    large = k2_large(K, k_seen, c64)
+    if gram["launches"][large] < 1 or gram["launches"]["chol_inv_resident"] < 1:
+        raise AssertionError(f"the D={LD8_D} gram per-side call did not launch K2 resident and {large}: {gram}")
     return {"config": {"D": LD8_D, "N": LD8_N, "chi_msg": LD8_CHI_MSG, "chi": LD8_CHI, "dtype": "complex64"},
             "per_side": per_side, "edge_update": update, "gram_per_side": gram}, k_seen
 
@@ -2334,37 +2448,26 @@ def ld_demo(dev):
 def ld_k2_checks(torch, K, dev, k_seen):
     """Phase 13.6, after the launch counts are read: K2 at every size the D=8
     gram call gave it, in complex64 on SPD matrices drawn on the card,
-    against its plain version (K2_TOL); at the largest k, and at D=7's
-    largest (D²·χ = 5292 at χ=108), timed beside the plain version and the
-    library call (cholesky_ex + solve_triangular)."""
+    against its plain version (K2_TOL), and its kernel time there (phase 3
+    times the largest beside the plain version and the library call)."""
     c64 = torch.complex64
     gen = torch.Generator(device=dev).manual_seed(3)
-    k7 = LD7_D ** 2 * LD7_CHI
-    out, k_max = {}, max(k_seen)
-    for k in sorted(set(k_seen) | {k7}):
+    out = {}
+    for k in sorted(k_seen):
         b = torch.randn((k, k), generator=gen, dtype=c64, device=dev)
         g = b @ b.mH + k * torch.eye(k, dtype=c64, device=dev)
         l, w = K.chol_inv_cuda(g)
         l_ref, w_ref = K.chol_inv_ref(g)
         err = max(((l - l_ref).abs().max() / l_ref.abs().max()).item(),
                   ((w - w_ref).abs().max() / w_ref.abs().max()).item())
-        row = {"calls": k_seen.get(k, 0), "variant": K.chol_inv_plan(k, c64).variant, "rel_err": err,
-               "max_abs_err": max((l - l_ref).abs().max().item(), (w - w_ref).abs().max().item())}
-        if k in (k7, k_max):
-            row["ms"] = _ms(torch, lambda: K.chol_inv_cuda(g))
-            row["plain_ms"] = _ms(torch, lambda: K.chol_inv_ref(g))
-            row["library_ms"] = _ms(torch, lambda: _library(torch, g))
-            row["bound_ms"], row["bound_by"] = bound(*chol_inv_work(k, c64, torch))
-        out[str(k)] = row
+        out[k] = {"calls": k_seen[k], "variant": K.chol_inv_plan(k, c64).variant, "rel_err": err,
+                  "max_abs_err": max((l - l_ref).abs().max().item(), (w - w_ref).abs().max().item()),
+                  "ms": _ms(torch, lambda: K.chol_inv_cuda(g), budget_ms=50.0, rounds=3)}
         del b, g, l, w, l_ref, w_ref
     worst = max(r["rel_err"] for r in out.values())
-    print(f"large D: K2 at each D={LD8_D} gram size {sorted(k_seen)} and at k={k7}, complex64, against its "
-          f"plain version: largest rel_err {worst:.3e} (tol {K2_TOL['complex64']:g})")
-    for k in (k7, k_max):
-        top = out[str(k)]
-        print(f"large D: K2 at k={k} ({top['variant']}): kernel {top['ms']:.3f} ms, plain "
-              f"{top['plain_ms']:.3f} ms, library (cholesky_ex + solve_triangular) "
-              f"{top['library_ms']:.3f} ms, bound {top['bound_ms']:.3f} ms ({top['bound_by']})")
+    print(f"large D: K2 at each D={LD8_D} gram size, complex64, against its plain version: largest rel_err "
+          f"{worst:.3e} (tol {K2_TOL['complex64']:g}); " + ", ".join(
+              f"k={k} {r['variant']} {r['calls']}×{r['ms']:.3f} ms" for k, r in out.items()))
     if not worst < K2_TOL["complex64"]:
         raise AssertionError(f"K2 disagrees with its plain version at a D={LD8_D} gram size: {out}")
     return out
@@ -2488,7 +2591,7 @@ def bench_scaling_check(started):
         raise AssertionError(f"bench_scaling failed: rc {rc}, rows {rows}")
     for r in rows:
         n = r["launches"]
-        if r["bp_mode"] != "batched" or n["fused_tensor"] != 1 or n["chol_inv_resident"] + n["chol_inv_blocked"]:
+        if r["bp_mode"] != "batched" or n["fused_tensor"] != 1 or sum(n[v] for v in K2_VARIANTS):
             raise AssertionError(f"bench_scaling at D={r['D']}: {r['bp_mode']}, launches {n}")
     return {"rows": rows, "seconds": secs}
 
@@ -2654,7 +2757,7 @@ def main() -> int:
     lap("1-2")
 
     # -- 3. kernels against their plain versions --
-    by_D, rows = kernel_checks(torch, K, dev)
+    by_D, rows, k2_table = kernel_checks(torch, K, dev)
 
     lap("3")
 
@@ -2701,7 +2804,7 @@ def main() -> int:
     gap_gram = report_pin(res_gram, gold, "c128 KPBP_LINALG=gram")
     if counts_default["fused_tensor"] <= 0 or counts_gram["fused_tensor"] <= 0:
         raise AssertionError("K1 was not launched by a slice run")
-    for variant in ("chol_inv_resident", "chol_inv_blocked"):
+    for variant in ("chol_inv_resident", k2_large(K, k_seen, torch.complex128)):
         if counts_gram[variant] <= 0:
             raise AssertionError(f"K2 ({variant}) was not launched by the gram slice run")
 
@@ -2752,7 +2855,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     by_k = {k: check_chol_inv(torch, K, dev, gen, torch.complex128, "complex128", k)
             for k in sorted(k_seen)}
-    for variant in ("resident", "blocked"):
+    for variant in dict.fromkeys(r["variant"] for r in by_k.values()):
         ks = [k for k in by_k if by_k[k]["variant"] == variant]
         k_main = max(ks, key=lambda k: k_seen[k] * by_k[k]["ms"])
         row = by_k[k_main]
@@ -2872,7 +2975,9 @@ def main() -> int:
     warm["eigh_retries"] = L.eigh_retries()
     warm["wall_s"] = time.perf_counter() - t_ws
     print(f"warm-start phase: {warm['wall_s']:.1f} s wall; launches {json.dumps(counts_ws)}")
-    missing = [n for n, c in counts_ws.items() if c <= 0]
+    # every kernel but K2's tiled variant: the warm start's grams stay below
+    # CHOL_TILED_MIN_K, so its large-k variant is blocked
+    missing = [n for n, c in counts_ws.items() if c <= 0 and n != "chol_inv_tiled"]
     if missing:
         raise AssertionError(f"the warm-start path launched no {missing}")
     warm["bp_modes"] = took("phase 10.3-10.7")
@@ -2916,8 +3021,9 @@ def main() -> int:
     par["wall_s"] = time.perf_counter() - t_12
     print(f"distribution-layer phase: {par['wall_s']:.1f} s wall; launches on the parallel path, "
           f"all ranks and workers {json.dumps(counts_par)}")
-    missing = [n for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked")
-               if counts_par[n] <= 0]
+    missing = [n for n in ("fused_tensor", "chol_inv_resident") if counts_par[n] <= 0]
+    if counts_par["chol_inv_blocked"] + counts_par["chol_inv_tiled"] <= 0:
+        missing.append("K2's large-k variants")
     if missing:
         raise AssertionError(f"the parallel path launched no {missing}")
     took("phase 12")
@@ -2940,7 +3046,8 @@ def main() -> int:
     large["demo_d7"] = ld_demo(dev)   # zeroes the counts and returns its own
     counts_ld = {n: seen[n] - reference.get(n, 0) + large["demo_d7"]["launches"][n] for n in seen}
     large["launches"], large["reference_launches"] = counts_ld, reference
-    missing = [n for n in ("fused_tensor", "chol_inv_resident", "chol_inv_blocked") if counts_ld[n] <= 0]
+    missing = [n for n in ("fused_tensor", "chol_inv_resident", k2_large(K, k_seen8, torch.complex64))
+               if counts_ld[n] <= 0]
     if missing:
         raise AssertionError(f"the large-D path launched no {missing}")
     K.reset_launch_counts()
@@ -2950,6 +3057,11 @@ def main() -> int:
     if counts_rec["fused_tensor"] <= 0:
         raise AssertionError(f"the record entry points launched no fused_tensor: {counts_rec}")
     large["k2_by_size"] = ld_k2_checks(torch, K, dev, k_seen8)
+    d8 = large["d8"]
+    d8["gram_per_side"]["k2_share"] = k2_share(k_seen8, large["k2_by_size"], d8["gram_per_side"]["s"])
+    print(f"large D: D={LD8_D} per-side call, default linear algebra {d8['per_side']['s']:.2f} s against "
+          f"KPBP_LINALG=gram {d8['gram_per_side']['s']:.2f} s, K2 {100 * d8['gram_per_side']['k2_share']:.1f}% "
+          f"of the gram call (calls × kernel ms over its sizes)")
     large["wall_s"] = time.perf_counter() - t_13
     print(f"large-D and records phase: {large['wall_s']:.1f} s wall; launches large D "
           f"{json.dumps(counts_ld)} (the D=3 reference's {json.dumps(reference)} left out), records "
@@ -3011,12 +3123,14 @@ def main() -> int:
     k2 = ("kagomeperiodicbp_tpu_torch/csrc/chol_inv.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:194")
     k1 = ("kagomeperiodicbp_tpu_torch/csrc/fused_tensor.cu", "kagomeperiodicbp_tpu/ops/pallas_kernels.py:82")
     src = {"fused_tensor": k1, "fused_tensor_operator": k1,
-           "chol_inv_resident": k2, "chol_inv_blocked": k2}
+           "chol_inv_resident": k2, "chol_inv_blocked": k2, "chol_inv_tiled": k2}
     kernels = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
                 "launches": launches[n], "launches_by_path": by_path[n],
                 **{k: v for k, v in rows[n].items() if k not in ("g", "rel_err")}}
-               for n in ("fused_tensor", "fused_tensor_operator", "chol_inv_resident", "chol_inv_blocked")]
+               for n in ("fused_tensor", "fused_tensor_operator") + K2_VARIANTS]
     print(json.dumps({"fused_tensor_by_D": by_D}))
+    print(json.dumps({"chol_inv_by_k": {n: {k: {key: v for key, v in r.items() if key != "row"}
+                                            for k, r in t.items()} for n, t in k2_table.items()}}))
     print(json.dumps({"ite": {"config": {"N": ITE_N, "D": inputs[0].D, "chi": ITE_CHI,
                                          "chi_msg": ITE_CHI_MSG, "edge": str(edge),
                                          "als_iters": ITE_ALS, "dt": ITE_DT},

@@ -13,15 +13,17 @@
 // there. Only the lower triangle of G is read; L and W come back lower
 // triangular with zeros above the diagonal.
 //
-// What bounds it on this card: latency, not arithmetic or bytes. At k=324
-// in complex128 the whole job is ~91 MFLOP and ~5 MB (a few µs at the
-// card's peaks), but the k columns of the factor, and the k rows of the
-// inverse, depend on each other in order. One SM alone would need ~0.4 ms
-// for those flops even at its full FP64 rate, so large k must spread each
-// dependent phase over many SMs; small k must keep every round on chip.
+// What bounds it on this card: up to k ≈ 1000, latency, not arithmetic or
+// bytes. At k=324 in complex128 the whole job is ~91 MFLOP and ~5 MB (a few
+// µs at the card's peaks), but the k columns of the factor, and the k rows
+// of the inverse, depend on each other in order. One SM alone would need
+// ~0.4 ms for those flops even at its full FP64 rate, so large k must
+// spread each dependent phase over many SMs; small k must keep every round
+// on chip. At the D=6–8 grams (k = 2952…8832) the 8k³/3 flops bound it:
+// 27.4 ms at k=8832 in complex64 on the CUDA cores' FP32 rate.
 //
-// What the design does about it — two variants, chosen per call by
-// ops/kernels.chol_inv_plan from k (the switch is measured on the card):
+// What the design does about it — three variants, chosen per call by
+// ops/kernels.chol_inv_plan from k (the switches are measured on the card):
 //
 // (a) resident, for small k (and at most the k whose k×(k|1) matrix fits
 //     one block's 227 KB of shared memory): one block per matrix
@@ -49,10 +51,17 @@
 //     launch 0 reads G itself. The clamp acts inside every diagonal tile.
 //     At k=504 that is 16 launches of up to ~150 blocks each.
 //
+// (c) tiled, for the large grams: 64- or 128-wide tile columns, the
+//     diagonal tile factored once, the panel solved once, and one
+//     register-tiled complex GEMM per tile column for both updates; in
+//     chol_inv_tiled.cu (a source of its own, so the two compile side by
+//     side), reached through chol_inv_tiled.cuh.
+//
 // Complex values stay interleaved (float2/double2) and double precision is
 // native, so complex128 runs in double (the TPU kernel was float32 planes
 // only). The 128-padding of the Pallas version was the TPU's tile size and
 // is gone; a ragged edge tile reads as the identity outside the matrix.
+#include "chol_inv_tiled.cuh"
 #include "common.cuh"
 
 namespace {
@@ -64,10 +73,7 @@ constexpr int PER_THREAD = NB * NB / BLOCKED_THREADS;  // tile outputs per threa
 constexpr int COLS_STEP = NB / PER_THREAD;             // thread t: row t/COLS_STEP
 static_assert(NB * NB % BLOCKED_THREADS == 0, "tile outputs must split evenly");
 
-enum Variant { RESIDENT = 0, BLOCKED = 1 };
-
-template <typename R>
-__device__ __forceinline__ R clamped(R x, R tiny) { return x > tiny ? x : tiny; }
+enum Variant { RESIDENT = 0, BLOCKED = 1, TILED = 2 };
 
 // In-place Cholesky of the n×n lower triangle at `a` (row stride lda) in
 // shared memory, by the whole block. Right-looking, one column per round,
@@ -437,18 +443,51 @@ chol_inv_blocked_step(const T* __restrict__ g_all, T* s_all, T* x_all, T* __rest
 
 int resident_threads(int k) { return k <= 32 ? 128 : 512; }
 
+// A variant code's tile width at size k: blocked NB; tiled the width in
+// bits 8 and up (0 there: the tiled variant's default), 64 or, for 4- and
+// 8-byte types, 128; resident 0; -1 for a code no variant takes.
 template <typename T>
-size_t smem_bytes(int k, int variant) {
-  if (variant == RESIDENT) return (size_t)k * (k | 1) * sizeof(T);
-  return (3 * NB * NB_LD + 2 * NB) * sizeof(T) + 2 * NB * sizeof(typename Scalar<T>::real);
+int tile_of(int variant, int k) {
+  if (variant == RESIDENT) return 0;
+  if (variant == BLOCKED) return NB;
+  if ((variant & 0xff) != TILED) return -1;
+  const int nb = (variant >> 8) ? (variant >> 8) : chol_inv_tiled_default_nb(k, sizeof(T));
+  return nb == 64 || (nb == 128 && sizeof(T) <= 8) ? nb : -1;
+}
+
+template <typename T>
+long long smem_bytes(int k, int variant, int dtype) {
+  const int nb = tile_of<T>(variant, k);
+  if (nb < 0) return -1;
+  if (variant == RESIDENT) return (long long)k * (k | 1) * sizeof(T);
+  if (variant == BLOCKED)
+    return (3 * NB * NB_LD + 2 * NB) * sizeof(T) + 2 * NB * sizeof(typename Scalar<T>::real);
+  return chol_inv_tiled_smem(dtype, nb);
+}
+
+template <typename T>
+long long launches(int k, int variant, int dtype) {
+  const int nb = tile_of<T>(variant, k);
+  if (nb <= 0) return nb < 0 ? -1 : 1;
+  if (variant == BLOCKED) return (k + nb - 1) / nb;
+  return chol_inv_tiled_launches(k, dtype, nb);
+}
+
+template <typename T>
+long long scratch_elems(int k, int variant) {
+  const int nb = tile_of<T>(variant, k);
+  if (nb <= 0) return nb;
+  return variant == BLOCKED ? 2LL * k * k : (long long)nb * k + nb * nb + 2 * nb;
 }
 
 template <typename T>
 int launch_chol_inv(const void* g, void* scratch, void* l, void* w, int k, int batch,
-                    int variant, double tiny, cudaStream_t stream) {
+                    int dtype, int variant, double tiny, cudaStream_t stream) {
   using R = typename Scalar<T>::real;
-  const size_t smem = smem_bytes<T>(k, variant);
-  if (smem > (size_t)KPBP_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long smem = smem_bytes<T>(k, variant, dtype);
+  if (smem < 0 || smem > KPBP_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if ((variant & 0xff) == TILED)
+    return chol_inv_tiled(g, scratch, l, w, k, batch, dtype, tile_of<T>(variant, k), tiny, stream);
   const T* gt = static_cast<const T*>(g);
   T* lt = static_cast<T*>(l);
   T* wt = static_cast<T*>(w);
@@ -480,23 +519,41 @@ int launch_chol_inv(const void* g, void* scratch, void* l, void* w, int k, int b
 // g: contiguous [batch, k, k] Hermitian PSD (lower triangle read); l, w:
 // contiguous [batch, k, k] of the same dtype, written. variant 0 (resident)
 // needs no scratch; variant 1 (blocked) needs 2·batch·k² elements of it and
-// batch ≤ 65535. Enqueues every launch on `stream` and returns the first
-// nonzero cudaGetLastError() (or cudaErrorInvalidValue for arguments no
-// variant takes), else 0.
+// batch ≤ 65535; variant 2 (tiled) batch·(NB·k + NB² + 2·NB) and batch ≤
+// 65535, with the tile width NB in bits 8 and up of `variant` (2 | 128 << 8
+// is tiled at NB=128; 0 there: chol_inv_tiled_default_nb). Enqueues every launch on
+// `stream` and returns the first nonzero cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments no variant takes), else 0.
 extern "C" int kpbp_chol_inv(const void* g, void* scratch, void* l, void* w, int k, int batch,
                              int dtype, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const double tiny = (dtype == KPBP_F64 || dtype == KPBP_C128) ? 1e-300 : 1e-30;
-#define KPBP_LAUNCH(T) return launch_chol_inv<T>(g, scratch, l, w, k, batch, variant, tiny, s)
+#define KPBP_LAUNCH(T) return launch_chol_inv<T>(g, scratch, l, w, k, batch, dtype, variant, tiny, s)
   KPBP_DISPATCH(dtype, KPBP_LAUNCH)
 #undef KPBP_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory one block of `variant` takes at size k (the plan in
-// ops/kernels.py computes the same; the card tests compare the two).
+// The most dynamic shared memory one block of `variant` takes at size k,
+// the launches one call enqueues and its scratch elements per matrix (the
+// plan in ops/kernels.py computes the same; the card tests compare them);
+// -1 for a variant code none takes.
 extern "C" long long kpbp_chol_inv_smem(int k, int dtype, int variant) {
-#define KPBP_LAUNCH(T) return (long long)smem_bytes<T>(k, variant)
+#define KPBP_LAUNCH(T) return smem_bytes<T>(k, variant, dtype)
+  KPBP_DISPATCH(dtype, KPBP_LAUNCH)
+#undef KPBP_LAUNCH
+  return -1;
+}
+
+extern "C" long long kpbp_chol_inv_launches(int k, int dtype, int variant) {
+#define KPBP_LAUNCH(T) return launches<T>(k, variant, dtype)
+  KPBP_DISPATCH(dtype, KPBP_LAUNCH)
+#undef KPBP_LAUNCH
+  return -1;
+}
+
+extern "C" long long kpbp_chol_inv_scratch(int k, int dtype, int variant) {
+#define KPBP_LAUNCH(T) return scratch_elems<T>(k, variant)
   KPBP_DISPATCH(dtype, KPBP_LAUNCH)
 #undef KPBP_LAUNCH
   return -1;

@@ -18,6 +18,10 @@ __device__ __forceinline__ double krsqrt(double a) { return rsqrt(a); }
 __device__ __forceinline__ float kshfl(float v, int src) { return __shfl_sync(0xffffffffu, v, src); }
 __device__ __forceinline__ double kshfl(double v, int src) { return __shfl_sync(0xffffffffu, v, src); }
 
+// max(x, tiny): K2's clamp of a pivot or a diagonal divisor
+template <typename R>
+__device__ __forceinline__ R clamped(R x, R tiny) { return x > tiny ? x : tiny; }
+
 // The most dynamic shared memory one block can ask for on Hopper (227 KB);
 // above the 48 KB default a kernel must opt in (kpbp_allow_smem).
 constexpr int KPBP_SMEM_MAX = 232448;

@@ -9,10 +9,14 @@ and the build that turns ``csrc/*.cu`` into a shared library.
   apart from the ket: the sandwiches ⟨ψ| op |ψ⟩ of up to three operators
   at one site in one launch.
 * K2 ``chol_inv`` — Cholesky factor L of a Hermitian PSD G and W = L⁻¹
-  (``csrc/chol_inv.cu``; replaces ``chol_inv_pallas``), in two variants
+  (``csrc/chol_inv.cu``; replaces ``chol_inv_pallas``), in three variants
   that ``chol_inv_plan`` picks from k: ``resident`` (the matrix in one
-  block's shared memory) and ``blocked`` (one launch per 32-wide tile
-  column, each spread over many SMs).
+  block's shared memory, k ≤ ``CHOL_RESIDENT_MAX_K``), ``blocked`` (one
+  launch per 32-wide tile column, each spread over many SMs) and, from
+  ``CHOL_TILED_MIN_K`` (by dtype), ``tiled`` (per 64-wide tile column, 128-wide from
+  ``CHOL_WIDE_MIN_K`` but in complex128: the diagonal tile factored once,
+  the panel solved once by substitution, and one register-tiled complex
+  GEMM for the trailing and inverse updates).
 
 Dispatch rule, the same for both: a tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises. Nothing falls back.
@@ -49,8 +53,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("fused_tensor.cu", "chol_inv.cu")
-_HEADERS = ("common.cuh",)
+_SOURCES = ("fused_tensor.cu", "chol_inv.cu", "chol_inv_tiled.cu")
+_HEADERS = ("common.cuh", "chol_inv_tiled.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -112,8 +116,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib.kpbp_fused_tensors.restype = i
     lib.kpbp_chol_inv.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.kpbp_chol_inv.restype = i
-    lib.kpbp_chol_inv_smem.argtypes = [i, i, i]
-    lib.kpbp_chol_inv_smem.restype = ctypes.c_longlong
+    for query in (lib.kpbp_chol_inv_smem, lib.kpbp_chol_inv_launches, lib.kpbp_chol_inv_scratch):
+        query.argtypes = [i, i, i]
+        query.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -329,40 +334,97 @@ CHOL_NB = 32
 # shared memory up to k·(k|1) elements (120 in complex128, 169 in
 # complex64 and float64, 241 in float32).
 CHOL_RESIDENT_MAX_K = 24
+# The smallest k that takes the tiled variant, by dtype: where the blocked
+# and tiled variants' times cross on the card (chip_smoke.py phase 3 times
+# them side by side; PERF.md): between k=1296 and 1600 in complex64,
+# between 1152 and 1296 in complex128, whose blocked variant runs at the
+# FP64 rate; the real types follow their complex twins.
+CHOL_TILED_MIN_K = {torch.float32: 1600, torch.complex64: 1600,
+                    torch.float64: 1296, torch.complex128: 1296}
+# The tiled variant (csrc/chol_inv.cu, namespace tiled): its default tile
+# width, 64, and 128 for 4- and 8-byte types from CHOL_WIDE_MIN_K (a
+# 128-wide complex128 diagonal tile does not fit one block; chip_smoke.py
+# phase 3 times both widths: in complex64 64 is faster at k=4096, 128 at
+# 5292), the rows (or W columns) of one panel block, and its update's
+# output tile (TM by element size, × TN), slice depth and ring of stages.
+CHOL_WIDE_MIN_K = 4608
+_TILED_CHUNK = 64
+_TILED_TM = {4: 128, 8: 128, 16: 64}
+_TILED_TN = 64
+_TILED_KC = 16
+_TILED_STAGES = 3
 
 
 class CholInvPlan(NamedTuple):
-    variant: str      # "resident" or "blocked"
-    smem_bytes: int   # dynamic shared memory of one block
+    variant: str      # "resident", "blocked" or "tiled"
+    smem_bytes: int   # dynamic shared memory of the largest block
     launches: int     # CUDA launches one call enqueues
     scratch: int      # scratch elements per matrix
+    tile: int = 0     # tile width (blocked, tiled)
+
+
+def _tiled_smem(nb: int, size: int, real: int) -> Tuple[int, int, int]:
+    """Shared memory of the tiled variant's three blocks at tile width nb:
+    the diagonal factor, a panel block and an update block (csrc/chol_inv.cu
+    tiled::diag_smem, panel_smem, update_smem)."""
+    diag = nb * (nb + 1) * size + nb * real
+    stage = max(_TILED_CHUNK * (nb + 1), nb * (_TILED_CHUNK + 1))
+    panel = (nb * nb + stage) * size + nb * real
+    update = _TILED_STAGES * _TILED_KC * (_TILED_TM[size] + _TILED_TN) * size
+    return diag, panel, update
 
 
 @lru_cache(maxsize=None)
-def chol_inv_plan(k: int, dtype: torch.dtype, variant: str = "") -> CholInvPlan:
+def chol_inv_plan(k: int, dtype: torch.dtype, variant: str = "", tile: int = 0) -> CholInvPlan:
     """How K2 runs a [k, k] gram of `dtype` on the card: ``resident`` up to
-    ``CHOL_RESIDENT_MAX_K``, ``blocked`` above. ``variant`` forces one
-    (chip_smoke.py times both around the switch); a resident matrix that
-    does not fit one block raises."""
+    ``CHOL_RESIDENT_MAX_K``, ``blocked`` below ``CHOL_TILED_MIN_K[dtype]``,
+    ``tiled`` from there. ``variant`` forces one and ``tile`` the tiled variant's
+    width, 64 or 128 (chip_smoke.py times them side by side); a resident
+    matrix or a tile that does not fit one block raises."""
     size = torch.empty((), dtype=dtype).element_size()
-    variant = variant or ("resident" if k <= CHOL_RESIDENT_MAX_K else "blocked")
+    real = size // 2 if dtype.is_complex else size
+    variant = variant or ("resident" if k <= CHOL_RESIDENT_MAX_K
+                          else "blocked" if k < CHOL_TILED_MIN_K[dtype] else "tiled")
+    if tile and variant != "tiled":
+        raise ValueError(f"chol_inv: only the tiled variant takes a tile width, not {variant!r}")
     if variant == "resident":
         smem = k * (k | 1) * size
         if smem > SMEM_MAX:
             raise ValueError(f"chol_inv: k={k} in {dtype} needs {smem} B of shared memory "
                              f"resident, above the {SMEM_MAX} B a block can take")
         return CholInvPlan("resident", smem, 1, 0)
-    if variant != "blocked":
+    if variant == "blocked":
+        smem = (3 * CHOL_NB * (CHOL_NB + 1) + 2 * CHOL_NB) * size + 2 * CHOL_NB * real
+        return CholInvPlan("blocked", smem, -(-k // CHOL_NB), 2 * k * k, CHOL_NB)
+    if variant != "tiled":
         raise ValueError(f"chol_inv: unknown variant {variant!r}")
-    real = size // 2 if dtype.is_complex else size
-    smem = (3 * CHOL_NB * (CHOL_NB + 1) + 2 * CHOL_NB) * size + 2 * CHOL_NB * real
-    return CholInvPlan("blocked", smem, -(-k // CHOL_NB), 2 * k * k)
+    nb = tile or (128 if size <= 8 and k >= CHOL_WIDE_MIN_K else 64)
+    if nb not in (64, 128):
+        raise ValueError(f"chol_inv: the tiled variant takes a tile of 64 or 128, not {nb}")
+    diag, panel, update = _tiled_smem(nb, size, real)
+    smem = max(diag, panel, update)
+    if smem > SMEM_MAX:
+        raise ValueError(f"chol_inv: a tile of {nb} in {dtype} needs {smem} B of shared memory, "
+                         f"above the {SMEM_MAX} B a block can take")
+    # per tile column a diagonal factor, a panel and (but the last) an
+    # update; at nb = 64 the update's block at the next diagonal tile
+    # factors it (tiled::fuses_diag), so only tile column 0 has a factor launch
+    nt = -(-k // nb)
+    fused = nb == _TILED_TN and diag <= update
+    return CholInvPlan("tiled", smem, 2 * nt if fused else 3 * nt - 1, nb * k + nb * nb + 2 * nb, nb)
 
 
-_VARIANT_CODE = {"resident": 0, "blocked": 1}
+_VARIANT_CODE = {"resident": 0, "blocked": 1, "tiled": 2}
 
 
-def chol_inv_cuda(g: torch.Tensor, variant: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+def _variant_code(plan: CholInvPlan) -> int:
+    """csrc/chol_inv.cu's variant code; the tiled one carries its tile width
+    in bits 8 and up."""
+    code = _VARIANT_CODE[plan.variant]
+    return code | plan.tile << 8 if plan.variant == "tiled" else code
+
+
+def chol_inv_cuda(g: torch.Tensor, variant: str = "", tile: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on the card: g contiguous [k, k] or [batch, k, k]; reads the lower
     triangle of each G. One C call enqueues the plan's launches on the
     current stream; the variant's wrapper counts the call."""
@@ -371,23 +433,24 @@ def chol_inv_cuda(g: torch.Tensor, variant: str = "") -> Tuple[torch.Tensor, tor
         raise ValueError(f"chol_inv_cuda: expected [k,k] or [b,k,k], got {tuple(g.shape)}")
     k = g.shape[-1]
     batch = g.shape[0] if g.ndim == 3 else 1
-    plan = chol_inv_plan(k, g.dtype, variant)
-    if plan.variant == "blocked" and batch > 65535:
-        raise ValueError(f"chol_inv_cuda: the blocked variant takes at most 65535 matrices, got {batch}")
+    plan = chol_inv_plan(k, g.dtype, variant, tile)
+    if plan.variant != "resident" and batch > 65535:
+        raise ValueError(f"chol_inv_cuda: the {plan.variant} variant takes at most 65535 matrices, "
+                         f"got {batch}")
     scratch = torch.empty(batch * plan.scratch, dtype=g.dtype, device=g.device) if plan.scratch else None
     l = torch.empty_like(g)
     w = torch.empty_like(g)
     rc = build().kpbp_chol_inv(g.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-                               l.data_ptr(), w.data_ptr(), k, batch, code,
-                               _VARIANT_CODE[plan.variant], _stream(g))
+                               l.data_ptr(), w.data_ptr(), k, batch, code, _variant_code(plan), _stream(g))
     CHOL_INV_VARIANTS[plan.variant].launches += 1
     _raise_on(rc, f"chol_inv_cuda ({plan.variant})")
     return l, w
 
 
-# the launch count of each K2 variant (both go through chol_inv_cuda)
+# the launch count of each K2 variant (all go through chol_inv_cuda)
 CHOL_INV_VARIANTS = {"resident": SimpleNamespace(launches=0),
-                     "blocked": SimpleNamespace(launches=0)}
+                     "blocked": SimpleNamespace(launches=0),
+                     "tiled": SimpleNamespace(launches=0)}
 
 
 @torch.library.custom_op("kpbp::chol_inv", mutates_args=())
@@ -441,7 +504,8 @@ def _metered(kernel: str, dtype: torch.dtype, *dims: int):
 KERNELS = {"fused_tensor": FUSED_TENSOR,
            "fused_tensor_operator": FUSED_TENSOR_OPERATOR,
            "chol_inv_resident": CHOL_INV_VARIANTS["resident"],
-           "chol_inv_blocked": CHOL_INV_VARIANTS["blocked"]}
+           "chol_inv_blocked": CHOL_INV_VARIANTS["blocked"],
+           "chol_inv_tiled": CHOL_INV_VARIANTS["tiled"]}
 
 
 def reset_launch_counts() -> None:

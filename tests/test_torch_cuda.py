@@ -154,7 +154,8 @@ def test_fused_tensors_with_operator_cuda_matches_ref(cuda, D, dtype):
     torch.cuda.synchronize()
     after = K.launch_counts()
     assert {n: after[n] - before[n] for n in after} == {
-        "fused_tensor": 0, "fused_tensor_operator": 1, "chol_inv_resident": 0, "chol_inv_blocked": 0}
+        "fused_tensor": 0, "fused_tensor_operator": 1, "chol_inv_resident": 0, "chol_inv_blocked": 0,
+        "chol_inv_tiled": 0}
     for g, op in zip(got, ops):
         want = K.fused_tensor_with_operator_ref(t, op.to(cuda))
         assert (g - want).abs().max().item() < K1_ATOL[dtype]
@@ -196,26 +197,32 @@ def test_measure_xyz_sandwich_on_card_matches_cpu(cuda):
 
 
 def _size(name, dtype):
-    """k for a named case: panel edges of the blocked variant (nb), the
-    resident/blocked switch, the largest resident matrix that fits one
+    """k for a named case: panel edges of the blocked variant (nb) or of the
+    tiled one (tb, its 64 wide tile), the resident/blocked switch, the
+    blocked/tiled switch (tiled), the largest resident matrix that fits one
     block (fit), or a plain number."""
     size = torch.empty((), dtype=dtype).element_size()
     fit = max(k for k in range(1, 300) if k * (k | 1) * size <= K.SMEM_MAX)
     return int(eval(name, {"__builtins__": {}},
-                    {"nb": K.CHOL_NB, "switch": K.CHOL_RESIDENT_MAX_K, "fit": fit}))
+                    {"nb": K.CHOL_NB, "tb": 64, "switch": K.CHOL_RESIDENT_MAX_K,
+                     "tiled": K.CHOL_TILED_MIN_K[dtype], "fit": fit}))
 
 
-def _check_chol_inv(g, dtype, variant=""):
+def _counts(variant):
+    """The launch counts of one K2 call of `variant`."""
+    return {"fused_tensor": 0, "fused_tensor_operator": 0,
+            **{f"chol_inv_{v}": int(v == variant) for v in ("resident", "blocked", "tiled")}}
+
+
+def _check_chol_inv(g, dtype, variant="", tile=0):
     """K2 on g against the plain version, and the launch counted on the
-    variant the plan (or `variant`) names and on no other."""
-    want = K.chol_inv_plan(g.shape[-1], g.dtype, variant).variant
+    variant the plan (or `variant`, at `tile`) names and on no other."""
+    want = K.chol_inv_plan(g.shape[-1], g.dtype, variant, tile).variant
     before = K.launch_counts()
-    l, w = K.chol_inv_cuda(g, variant) if variant else K.chol_inv(g)
+    l, w = K.chol_inv_cuda(g, variant, tile) if variant else K.chol_inv(g)
     torch.cuda.synchronize()
     after = K.launch_counts()
-    assert {n: after[n] - before[n] for n in after} == {
-        "fused_tensor": 0, "fused_tensor_operator": 0, "chol_inv_resident": int(want == "resident"),
-        "chol_inv_blocked": int(want == "blocked")}
+    assert {n: after[n] - before[n] for n in after} == _counts(want)
     l_ref, w_ref = K.chol_inv_ref(g)
     assert ((l - l_ref).abs().max() / l_ref.abs().max()).item() < K2_RTOL[dtype]
     assert ((w - w_ref).abs().max() / w_ref.abs().max()).item() < K2_RTOL[dtype]
@@ -224,11 +231,13 @@ def _check_chol_inv(g, dtype, variant=""):
 
 
 _K2_SIZES = ["1", "2", "nb-1", "nb", "nb+1", "2*nb+3", "switch-1", "switch", "switch+1",
-             "130", "300", "324", "504"]
+             "130", "300", "324", "504", "1296", "tiled-1", "tiled", "tiled+1", "2952"]
 # the plan's own choice at every size, the blocked variant forced where the
-# plan keeps the matrix resident, and the resident one forced up to its fit
+# plan keeps the matrix resident, the resident one forced up to its fit, and
+# the tiled one forced on its 64-wide tile's edges and on the pin's grams
 _K2_CASES = ([(n, "") for n in _K2_SIZES] + [(n, "blocked") for n in ["1", "2", "switch"]]
-             + [(n, "resident") for n in ["nb+1", "81", "fit"]])
+             + [(n, "resident") for n in ["nb+1", "81", "fit"]]
+             + [(n, "tiled") for n in ["1", "tb-1", "tb", "tb+1", "2*tb+3", "324", "504"]])
 
 
 @pytest.mark.cuda
@@ -240,24 +249,38 @@ def test_chol_inv_cuda_matches_ref(cuda, k, variant, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,variant", [(18, ""), (40, ""), (130, ""), (40, "resident")])
+@pytest.mark.parametrize("dtype", ["c64", "f32", "f64"])
+@pytest.mark.parametrize("k", [127, 128, 129, 259, 1296])
+def test_chol_inv_cuda_tiled_128_matches_ref(cuda, k, dtype):
+    """The tiled variant at its 128 wide tile (4- and 8-byte types), on the
+    tile's edges."""
+    _check_chol_inv(_gram(k, DTYPES[dtype]).to(cuda), dtype, "tiled", 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,variant", [(18, ""), (40, ""), (130, ""), (40, "resident"), (200, "tiled"),
+                                       (1700, "")])
 def test_chol_inv_cuda_batched(cuda, k, variant):
     _check_chol_inv(_gram(k, torch.complex128, batch=(3,)).to(cuda), "c128", variant)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("k", [1, 33, 120, 169, 241, 504])
+@pytest.mark.parametrize("k", [1, 33, 120, 169, 241, 504, 2952, 5292])
 def test_chol_inv_plan_smem_matches_kernel(cuda, k, dtype):
-    """The plan's shared memory is what the C side launches with."""
+    """The plan's shared memory, launches and scratch are what the C side
+    launches with, for every variant and tiled tile width that takes k."""
     dt = DTYPES[dtype]
     lib = K.build()
-    for variant, code in (("resident", 0), ("blocked", 1)):
+    for variant, tile in (("resident", 0), ("blocked", 0), ("tiled", 0), ("tiled", 64), ("tiled", 128)):
         try:
-            plan = K.chol_inv_plan(k, dt, variant)
+            plan = K.chol_inv_plan(k, dt, variant, tile)
         except ValueError:
             continue
-        assert lib.kpbp_chol_inv_smem(k, K._DTYPE_CODE[dt], code) == plan.smem_bytes
+        code, dcode = K._variant_code(plan), K._DTYPE_CODE[dt]
+        assert lib.kpbp_chol_inv_smem(k, dcode, code) == plan.smem_bytes
+        assert lib.kpbp_chol_inv_launches(k, dcode, code) == plan.launches
+        assert lib.kpbp_chol_inv_scratch(k, dcode, code) == plan.scratch
 
 
 def _rank_deficient(m, n, seed):
@@ -268,10 +291,11 @@ def _rank_deficient(m, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n", [(30, 10), (400, 324)])
+@pytest.mark.parametrize("m,n", [(30, 10), (400, 324), (2400, 1700)])
 def test_cholqr2_rank_deficient_on_card(cuda, m, n):
-    """CholeskyQR2 of an A with zero columns: the shift and the pivot clamp
-    keep Q and R finite, on the resident (k=10) and blocked (k=324) paths."""
+    """CholeskyQR2 of an A with zero columns (a zero-padded bond): the shift
+    and the pivot clamp keep Q and R finite, on the resident (k=10), blocked
+    (k=324) and tiled (k=1700) paths."""
     a = _rank_deficient(m, n, seed=3)
     variant = K.chol_inv_plan(n, torch.complex128).variant
     before = K.launch_counts()[f"chol_inv_{variant}"]
@@ -466,9 +490,9 @@ def test_single_layer_message_on_card(cuda, monkeypatch, toward):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["c64", "c128"])
-@pytest.mark.parametrize("k", [1, 9, 24, 36, 81, 130])
+@pytest.mark.parametrize("k", [1, 9, 24, 36, 81, 130, 1700])
 def test_chol_inv_under_vmap_is_one_launch(cuda, k, dtype):
-    """K2 under torch.func.vmap over 3 grams (both variants by k): one call
+    """K2 under torch.func.vmap over 3 grams (every variant by k): one call
     of the [3, k, k] path, counted once, each matrix against its plain
     version."""
     g = _gram(k, DTYPES[dtype], batch=(3,)).to(cuda)
@@ -477,9 +501,7 @@ def test_chol_inv_under_vmap_is_one_launch(cuda, k, dtype):
     l, w = torch.func.vmap(K.chol_inv)(g)
     torch.cuda.synchronize()
     after = K.launch_counts()
-    assert {n: after[n] - before[n] for n in after} == {
-        "fused_tensor": 0, "fused_tensor_operator": 0, "chol_inv_resident": int(variant == "resident"),
-        "chol_inv_blocked": int(variant == "blocked")}
+    assert {n: after[n] - before[n] for n in after} == _counts(variant)
     for b in range(3):
         l_ref, w_ref = K.chol_inv_ref(g[b])
         assert ((l[b] - l_ref).abs().max() / l_ref.abs().max()).item() < K2_RTOL[dtype]
@@ -511,7 +533,7 @@ def test_batched_sweep_on_card_matches_per_side(cuda, monkeypatch, linalg):
     for s in a:
         assert float(mpslib.distance(mpslib.from_sites(a[s]), mpslib.from_sites(b[s]))) < 1e-10
     assert abs(float(ea) - float(eb)) < 1e-10
-    k2 = ("chol_inv_resident", "chol_inv_blocked")
+    k2 = ("chol_inv_resident", "chol_inv_blocked", "chol_inv_tiled")
     if linalg == "gram":
         assert sum(counts[0][n] for n in k2) > 0
         assert all(counts[0][n] == 3 * counts[1][n] for n in k2)

@@ -79,7 +79,7 @@ def test_fused_tensor_on_cpu_takes_plain_version():
     K.fused_tensors([torch.from_numpy(_ket(2, np.complex128, seed=s)) for s in range(3)])
     K.fused_tensors_with_operator(torch.from_numpy(_ket(2, np.complex128)), [np.eye(2)] * 3)
     assert K.launch_counts() == {"fused_tensor": 0, "fused_tensor_operator": 0,
-                                 "chol_inv_resident": 0, "chol_inv_blocked": 0}
+                                 "chol_inv_resident": 0, "chol_inv_blocked": 0, "chol_inv_tiled": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.fused_tensor_cuda(torch.zeros((2, 2, 2, 2, 2), dtype=torch.complex128))
 
@@ -144,6 +144,7 @@ def test_chol_inv_on_cpu_takes_plain_version():
     K.reset_launch_counts()
     K.chol_inv(torch.from_numpy(_gram(6, np.complex128)))
     assert K.launch_counts()["chol_inv_resident"] == K.launch_counts()["chol_inv_blocked"] == 0
+    assert K.launch_counts()["chol_inv_tiled"] == 0
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.chol_inv_cuda(torch.eye(4, dtype=torch.float64))
 
@@ -152,21 +153,25 @@ def test_chol_inv_on_cpu_takes_plain_version():
 def test_chol_inv_plan_sends_only_what_fits_to_the_resident_variant(dtype):
     """Every k the plan keeps resident fits one block's shared memory; the
     pin's large grams (k=324, 504 in complex128) go to the blocked variant,
-    one launch per 32-wide tile column."""
+    one launch per 32-wide tile column, and from CHOL_TILED_MIN_K (by dtype)
+    every gram goes to the tiled one; every plan fits SMEM_MAX."""
     _, dt = DTYPES[dtype]
     size = torch.empty((), dtype=dt).element_size()
     variants = set()
-    for k in range(1, 601):
+    switch = K.CHOL_TILED_MIN_K[dt]
+    for k in list(range(1, 601)) + [switch + d for d in (-1, 0, 1)] + [2952, 8832]:
         plan = K.chol_inv_plan(k, dt)
         variants.add(plan.variant)
+        assert plan.smem_bytes <= K.SMEM_MAX
         if plan.variant == "resident":
-            assert plan.smem_bytes == k * (k | 1) * size <= K.SMEM_MAX
+            assert plan.smem_bytes == k * (k | 1) * size
             assert (plan.launches, plan.scratch) == (1, 0)
-        else:
-            assert k > K.CHOL_RESIDENT_MAX_K
+        elif plan.variant == "blocked":
+            assert K.CHOL_RESIDENT_MAX_K < k < switch
             assert plan.launches == -(-k // K.CHOL_NB) and plan.scratch == 2 * k * k
-            assert plan.smem_bytes <= K.SMEM_MAX
-    assert variants == {"resident", "blocked"}
+        else:
+            assert plan.variant == "tiled" and k >= switch
+    assert variants == {"resident", "blocked", "tiled"}
     fit = max(k for k in range(1, 601) if k * (k | 1) * size <= K.SMEM_MAX)
     assert K.chol_inv_plan(fit, dt, "resident").smem_bytes <= K.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):
@@ -175,6 +180,135 @@ def test_chol_inv_plan_sends_only_what_fits_to_the_resident_variant(dtype):
     if dt == torch.complex128:
         assert K.chol_inv_plan(324, dt).variant == K.chol_inv_plan(504, dt).variant == "blocked"
         assert (K.chol_inv_plan(324, dt).launches, K.chol_inv_plan(504, dt).launches) == (11, 16)
+
+
+def _tiled_smem(nb, dt):
+    """csrc/chol_inv.cu tiled::diag_smem, panel_smem and update_smem."""
+    size = torch.empty((), dtype=dt).element_size()
+    real = size // 2 if dt.is_complex else size
+    tm = 128 if size <= 8 else 64
+    diag = nb * (nb + 1) * size + nb * real
+    panel = (nb * nb + max(64 * (nb + 1), nb * 65)) * size + nb * real
+    return diag, panel, 3 * 16 * (tm + 64) * size
+
+
+@pytest.mark.parametrize("dtype", ["c64", "c128", "f32", "f64"])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 131, 1295, 1296, 1599, 1600, 1601, 2952, 4096,
+                               K.CHOL_WIDE_MIN_K, 5292, 8832])
+def test_chol_inv_plan_of_the_tiled_variant(k, dtype):
+    """The tiled variant's tile width (64; 128 from CHOL_WIDE_MIN_K but in
+    complex128, whose 128-wide diagonal tile does not fit a block), its
+    launches (a diagonal factor, a panel and, but the last, an update per
+    tile column; at width 64 the update factors the next diagonal tile, so
+    only tile column 0 has a factor launch), its scratch (the transposed
+    panel, the transposed diagonal factor and 2·NB scales) and its shared
+    memory, the largest of its three blocks, within SMEM_MAX."""
+    _, dt = DTYPES[dtype]
+    plan = K.chol_inv_plan(k, dt, "tiled")
+    nb = 128 if dt != torch.complex128 and k >= K.CHOL_WIDE_MIN_K else 64
+    nt = -(-k // nb)
+    diag, panel, update = _tiled_smem(nb, dt)
+    assert plan.variant == "tiled" and plan.tile == nb
+    assert plan.launches == (2 * nt if nb == 64 else 3 * nt - 1)
+    assert plan.scratch == nb * k + nb * nb + 2 * nb
+    assert plan.smem_bytes == max(diag, panel, update) <= K.SMEM_MAX
+    assert K.chol_inv_plan(k, dt, "tiled", 64).launches == 2 * -(-k // 64)
+    if dt == torch.complex128:
+        with pytest.raises(ValueError, match="shared memory"):
+            K.chol_inv_plan(k, dt, "tiled", 128)
+    else:
+        wide = K.chol_inv_plan(k, dt, "tiled", 128)
+        assert wide.launches == 3 * -(-k // 128) - 1 and wide.smem_bytes <= K.SMEM_MAX
+    for bad in ((k, dt, "tiled", 32), (k, dt, "blocked", 64)):
+        with pytest.raises(ValueError, match="tile"):
+            K.chol_inv_plan(*bad)
+
+
+def _tiled_model(g, nb):
+    """The tiled variant's schedule (csrc/chol_inv.cu, (c)) in torch, one
+    tile column at a time with the kernel's buffers: L and W start unwritten
+    (NaN), hold the trailing matrix and X in place, and must end with every
+    element written; PT is the transposed panel the update reads. Clamps as
+    the kernel's: pivot max(Re a_cc, tiny), divisor max(Re L_tt, tiny)."""
+    k, dt = g.shape[-1], g.dtype
+    tiny = 1e-300 if g.real.dtype == torch.float64 else 1e-30
+    nan = torch.full_like(g, float("nan"))
+    l, w, pt = nan.clone(), nan.clone(), torch.full((nb, k), float("nan"), dtype=dt)
+    for j in range(-(-k // nb)):
+        src, r0 = (g if j == 0 else l), j * nb
+        n, below = min(nb, k - r0), r0 + nb
+        # diag: A_jj's lower triangle, the identity past k, factored left-looking
+        a = torch.eye(nb, dtype=dt)
+        a[:n, :n] = torch.tril(src[r0:r0 + n, r0:r0 + n])
+        ljj, rs = torch.zeros_like(a), torch.zeros(nb, dtype=g.real.dtype)
+        for c in range(nb):
+            col = a[c:, c] - ljj[c:, :c] @ ljj[c, :c].conj()
+            rs[c] = 1 / torch.sqrt(torch.clamp(col[0].real, min=tiny))
+            ljj[c:, c] = col * rs[c]
+        l[r0:r0 + n, r0:r0 + n] = ljj[:n, :n]
+        dinv = 1 / torch.clamp(ljj.diagonal().real, min=tiny)
+        # panel: L_ij = A_ij·L_jj^{-†} by substitution along each row
+        if below < k:
+            x = src[below:, r0:below].clone()
+            for c in range(nb):
+                x[:, c] = (x[:, c] - x[:, :c] @ ljj[c, :c].conj()) * rs[c]
+            l[below:, r0:below] = x
+            pt[:, below:] = x.T
+            l[r0:below, below:] = 0
+            w[r0:below, below:] = 0
+        # W's row block: W_jc = L_jj^{-1}·X_jc, X_jj = I
+        ncols = min(below, k)
+        y = torch.zeros((nb, ncols), dtype=dt)
+        y[:n, :r0] = w[r0:r0 + n, :r0]
+        y[torch.arange(n), r0 + torch.arange(n)] = 1
+        for u in range(nb):
+            y[u] = y[u] * dinv[u]
+            y[u + 1:] -= ljj[u + 1:, u:u + 1] * y[u]
+        w[r0:r0 + n, :ncols] = torch.where(torch.arange(ncols) > r0 + torch.arange(nb)[:, None], 0, y)[:n]
+        # update: trailing A_im −= L_ij·L_mj† (lower triangle), X_ic −= L_ij·W_jc
+        if below < k:
+            p = pt[:, below:].T
+            trail = torch.tril(src[below:, below:]) - p @ p.mH
+            keep = torch.tril(torch.ones_like(trail, dtype=torch.bool))
+            l[below:, below:] = torch.where(keep, trail, l[below:, below:])
+            old = torch.cat([w[below:, :r0], torch.zeros((k - below, nb), dtype=dt)], dim=1)
+            w[below:, :below] = old - p @ w[r0:below, :below]
+    return l, w
+
+
+@pytest.mark.parametrize("dtype,tol", [("c128", 1e-11), ("f64", 1e-11), ("c64", 2e-5)])
+@pytest.mark.parametrize("k,nb", [(1, 8), (7, 8), (8, 8), (9, 8), (21, 8), (37, 16)])
+def test_tiled_schedule_model_matches_plain_version(k, nb, dtype, tol):
+    """The tiled schedule, at a small tile width and ragged k, gives the
+    plain version's L and W (relative to their largest entries), writes
+    every element, and leaves exact zeros above the diagonal."""
+    np_dt, dt = DTYPES[dtype]
+    g = torch.from_numpy(_gram(k, np_dt))
+    l, w = _tiled_model(g, nb)
+    l_ref, w_ref = K.chol_inv_ref(g)
+    assert torch.isfinite(l).all() and torch.isfinite(w).all()
+    assert not torch.triu(l, 1).any() and not torch.triu(w, 1).any()
+    assert ((l - l_ref).abs().max() / l_ref.abs().max()).item() < tol
+    assert ((w - w_ref).abs().max() / w_ref.abs().max()).item() < tol
+
+
+@pytest.mark.parametrize("rank_deficient", [False, True], ids=["full", "rank_deficient"])
+def test_tiled_schedule_model_matches_pallas(rank_deficient):
+    """The tiled schedule against the JAX package's Pallas kernel (interpret
+    mode) at a ragged k=21, tile width 8, complex128; rank-deficient: the
+    shifted gram of an A with zero columns (a zero-padded bond), where the
+    clamps act."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((40, 21)) + 1j * rng.standard_normal((40, 21))
+    if rank_deficient:
+        a[:, 13:] = 0
+    g = a.conj().T @ a
+    g = g + 1e-12 * np.trace(g).real * np.eye(21)
+    l, w = (x.numpy() for x in _tiled_model(torch.from_numpy(g), 8))
+    lp, wp = (np.asarray(x) for x in chol_inv_pallas(jnp.asarray(g), interpret=True))
+    assert np.isfinite(l).all() and np.isfinite(w).all()
+    np.testing.assert_allclose(l, lp, atol=1e-10 * np.abs(lp).max())
+    np.testing.assert_allclose(w, wp, atol=1e-10 * np.abs(wp).max())
 
 
 # ---------------------------- CholeskyQR2 ---------------------------------
@@ -312,3 +446,14 @@ def test_ite_solves_retry_a_failed_eigh_shifted(monkeypatch, site):
         (x, w), (x0, w0) = got, want
         np.testing.assert_allclose(w.numpy(), w0.numpy(), atol=1e-10 * float(w0.max()))
         np.testing.assert_allclose((x @ x.mH).numpy(), n_mat.numpy(), atol=1e-10 * float(w0.max()))
+
+
+def test_k2_profile_needs_the_card():
+    """tools/k2_profile times K2's kernels on the card and refuses to run
+    without one."""
+    from kagomeperiodicbp_tpu_torch.tools import k2_profile
+
+    assert k2_profile.parse_args(["2952:complex64", "8832:complex64:tiled:128"]).cases == [
+        "2952:complex64", "8832:complex64:tiled:128"]
+    with pytest.raises(SystemExit, match="needs the card"):
+        k2_profile.main(["2952:complex64"])

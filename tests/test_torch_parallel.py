@@ -337,6 +337,6 @@ def test_rank_report_leaves_out_reference_launches():
     out, tally, report = launch.run_group(1, _reference_launches, device="cpu")
     assert out == "ref"
     assert tally == {"fused_tensor": 1, "fused_tensor_operator": 0, "chol_inv_resident": 0,
-                     "chol_inv_blocked": 2}
+                     "chol_inv_blocked": 2, "chol_inv_tiled": 0}
     assert report[0]["launches"] == {"fused_tensor": 1, "fused_tensor_operator": 0,
-                                     "chol_inv_resident": 0, "chol_inv_blocked": 0}
+                                     "chol_inv_resident": 0, "chol_inv_blocked": 0, "chol_inv_tiled": 0}

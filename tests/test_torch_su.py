@@ -257,6 +257,7 @@ def test_port_and_chip_smoke_import_no_jax():
                               "measure_padded", "bp_accuracy", "load_external_su", "compare_cells",
                               "chip_accuracy", "tools", "tools.profile_bp_phases",
                               "tools.sketch_rank_curve", "tools.flops_model", "tools.bench_scaling",
+                              "tools.k2_profile",
                               "create_kagome_elists", "plot_afmh_benchmark",
                               "unpack_ite_tracker")} <= set(got["modules"])
     assert len(got["modules"]) > 30 and got["imported"] == [] and not got["matplotlib"]
